@@ -87,3 +87,9 @@ def viou_oracle():
 @pytest.fixture()
 def rng():
     return np.random.RandomState(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one"
+    )

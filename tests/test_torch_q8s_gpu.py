@@ -1,0 +1,96 @@
+"""The q8s CUDA kernel on a card (marked gpu; each test skips without one).
+
+Imports only torch, numpy and tspn_tpu_torch, so it runs where h5py and
+flax are absent: ``python -m pytest tests/test_torch_q8s_gpu.py -q``.
+
+* The kernel equals its plain PyTorch version bit for bit at the serve
+  path's three geometries, with a ragged row count and zero rows.
+* The wrapper raises on operands the kernel does not take.
+* predict_segments selects the same top-k with the kernel as with the
+  plain versions, launching the kernel twice per batch for q8f and once
+  for q8.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tspn_tpu_torch.ops import pairwise as tpw
+
+pytestmark = pytest.mark.gpu
+
+GEOMS = {
+    "tracklet": (tpw.tracklet_geom(), 264),
+    "rel": (tpw.rel_geom(), 132),
+    "expanded": (tpw.BlockGeom(3072, 8, 1024), 132),
+}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the q8s kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(geom, p, r, device, seed=4):
+    rng = np.random.RandomState(seed)
+    d = geom.device_dim
+    q = rng.randint(-127, 128, size=(p, d)).astype(np.int8)
+    q[-5:] = 0  # padded batch rows are all-zero
+    scales = np.zeros((p, 16), np.float32)
+    scales[:, : 1 + geom.num_bow_blocks] = rng.rand(p, 1 + geom.num_bow_blocks) / 50
+    qw_t = rng.randint(-127, 128, size=(r, d)).astype(np.int8)
+    sw = (rng.rand(r) / 127).astype(np.float32)
+    b = rng.randn(r).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (q, scales, qw_t, sw, b)]
+
+
+@pytest.mark.parametrize("name", list(GEOMS))
+def test_q8s_kernel_equals_plain(cuda_device, name):
+    geom, r = GEOMS[name]
+    args = _inputs(geom, 1000 + 37, r, cuda_device)
+    before = tpw.LAUNCHES["q8s"]
+    out = tpw.normalize_classify_q8s(*args, geom)
+    ref = tpw.normalize_classify_q8s_plain(*args, geom)
+    torch.cuda.synchronize()
+    assert tpw.LAUNCHES["q8s"] == before + 1
+    assert out.shape == (1037, r) and torch.equal(out, ref)
+
+
+def test_q8s_kernel_rejects_bad_operands(cuda_device):
+    geom = tpw.rel_geom()
+    q, scales, qw_t, sw, b = _inputs(geom, 64, 8, cuda_device)
+    with pytest.raises(TypeError):
+        tpw.normalize_classify_q8s(q.float(), scales, qw_t, sw, b, geom)
+    with pytest.raises(ValueError):
+        tpw.normalize_classify_q8s(q, scales, qw_t, sw, b, tpw.tracklet_geom())
+    with pytest.raises(ValueError):
+        tpw.normalize_classify_q8s(q, scales, qw_t.cpu(), sw, b, geom)
+    with pytest.raises(ValueError):
+        tpw.normalize_classify_q8s(q[:, 1:], scales, qw_t, sw, b, geom)
+
+
+@pytest.mark.parametrize("mode,per_batch", [("q8f", 2), ("q8", 1)])
+def test_serve_kernel_matches_plain(cuda_device, mode, per_batch):
+    from tspn_tpu_torch.data.loader import BucketedLoader
+    from tspn_tpu_torch.data.synthetic import synthetic_segments
+    from tspn_tpu_torch.models.tspn import build_model
+    from tspn_tpu_torch.runtime.predict import predict_segments
+
+    dataset = synthetic_segments(9, mode, seed=1, max_tracklets=12)
+    kw = dict(buckets=(4, 8, 12), batch_size=2, topk_per_pair=20, topk_per_seg=200)
+    model = build_model(seed=0).to(cuda_device).eval()
+    batches = len(BucketedLoader(dataset, kw["buckets"], kw["batch_size"],
+                                 dataset.feature_width(), 35))
+    before = tpw.LAUNCHES["q8s"]
+    out = predict_segments(model, dataset, device=cuda_device, **kw)
+    assert tpw.LAUNCHES["q8s"] - before == per_batch * batches
+    ref = predict_segments(model, dataset, device=cuda_device, plain=True, **kw)
+    assert tpw.LAUNCHES["q8s"] - before == per_batch * batches
+
+    def selection(res):
+        return {k: sorted((-float(s), tuple(i.tolist()), int(t[1]))
+                          for s, t, i in v[0]) for k, v in res.items()}
+
+    assert selection(out) == selection(ref)

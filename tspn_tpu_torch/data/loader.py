@@ -1,0 +1,157 @@
+"""Inference batching of segments into fixed-shape numpy buffers.
+
+Numpy copy of the JAX package's inference batching, without labels:
+``SegmentRecord`` (tspn_tpu/data/vrdataset.py:47-70), ``batch_buffers``
+and ``fill_padded`` (vrdataset.py:246-326) and the unshuffled bucket
+grouping of ``BucketedLoader`` (tspn_tpu/data/loader.py:35-151). Those
+modules import h5py at their top. ``tests/test_torch_predict.py`` holds
+this loader's batches equal, key by key, to
+``BucketedLoader(shuffle=False, include_labels=False)``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+SegmentIndex = Tuple[str, int, int]
+
+
+@dataclass
+class SegmentRecord:
+    """One segment's proposal-pair features (ragged, host)."""
+
+    index: SegmentIndex
+    feats: np.ndarray       # (P, D) f32 with L1-normalized BoW blocks, or
+    #                         int8 rows when q8_scales is set
+    pairs: np.ndarray       # (P, 2) int64 proposal tracklet indices
+    labels: Optional[np.ndarray]  # unused at inference
+    cls_logits: np.ndarray  # (N, num_objects) f32 per-tracklet classeme
+    num_proposals: int      # N
+    iou: np.ndarray         # (N+GT, N+GT) f32, passed through to the output
+    trackid: np.ndarray     # (N+GT,) int64
+    # q8: (P, 16) row multipliers (ops/pairwise.precompute_q8_scales);
+    # q8f: the relative rows' scales, with feats the (P, rel_pad) rows
+    q8_scales: Optional[np.ndarray] = None
+    # q8f: per-tracklet int8 descriptors + scales
+    trk_feats: Optional[np.ndarray] = None
+    trk_scales: Optional[np.ndarray] = None
+
+
+def pick_bucket(num_tracklets: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket >= num_tracklets (the largest if none fits; the
+    record is then truncated to that capacity)."""
+    for b in sorted(buckets):
+        if num_tracklets <= b:
+            return b
+    return max(buckets)
+
+
+def batch_buffers(
+    template, batch_size: int, n_bucket: int, num_objects: int, feature_dim: int,
+) -> Dict[str, np.ndarray]:
+    """Zeroed batch leaves (P_max = n_bucket * (n_bucket - 1)):
+    feats (B, P_max, D), int8 for q8 and q8f records, else f32;
+    pairs (B, P_max, 2) int32, padding points at tracklet 0;
+    pair_mask (B, P_max); cls_logits (B, n_bucket, C); track_mask
+    (B, n_bucket); feat_scale (B, P_max, 16) for q8 and q8f records;
+    trk_feats / trk_scales for q8f records."""
+    p_max = n_bucket * (n_bucket - 1)
+    feats_dtype = np.float32 if template.q8_scales is None else np.int8
+    bufs = {
+        "feats": np.zeros((batch_size, p_max, feature_dim), feats_dtype),
+        "pairs": np.zeros((batch_size, p_max, 2), np.int32),
+        "pair_mask": np.zeros((batch_size, p_max), np.float32),
+        "cls_logits": np.zeros((batch_size, n_bucket, num_objects), np.float32),
+        "track_mask": np.zeros((batch_size, n_bucket), np.float32),
+    }
+    if template.q8_scales is not None:
+        bufs["feat_scale"] = np.zeros((batch_size, p_max, 16), np.float32)
+    if template.trk_feats is not None:
+        bufs["trk_feats"] = np.zeros(
+            (batch_size, n_bucket, template.trk_feats.shape[1]), np.int8
+        )
+        bufs["trk_scales"] = np.zeros((batch_size, n_bucket, 16), np.float32)
+    return bufs
+
+
+def fill_padded(bufs: Dict[str, np.ndarray], b: int, record, n_bucket: int) -> None:
+    """Write one record into batch slot ``b``; pairs that reach past the
+    bucket's capacity are dropped."""
+    n = min(record.num_proposals, n_bucket)
+    p_max = n_bucket * (n_bucket - 1)
+    keep = (record.pairs[:, 0] < n) & (record.pairs[:, 1] < n)
+    if keep.all():
+        feats_src, pairs_src, scales_src = (
+            record.feats, record.pairs, record.q8_scales
+        )
+    else:
+        feats_src = record.feats[keep]
+        pairs_src = record.pairs[keep]
+        scales_src = None if record.q8_scales is None else record.q8_scales[keep]
+    p = min(feats_src.shape[0], p_max)
+    bufs["feats"][b, :p] = feats_src[:p]
+    bufs["pairs"][b, :p] = pairs_src[:p]
+    bufs["pair_mask"][b, :p] = 1.0
+    m = min(record.cls_logits.shape[0], n)
+    bufs["cls_logits"][b, :m] = record.cls_logits[:m]
+    bufs["track_mask"][b, :n] = 1.0
+    if "feat_scale" in bufs:
+        bufs["feat_scale"][b, :p] = scales_src[:p]
+    if "trk_feats" in bufs:
+        bufs["trk_feats"][b, :n] = record.trk_feats[:n]
+        bufs["trk_scales"][b, :n] = record.trk_scales[:n]
+
+
+class BucketedLoader:
+    """One pass over ``dataset`` in index order, grouped by tracklet
+    bucket; yields (bucket, batch, indices, records). A bucket's batch is
+    emitted when it fills; leftovers are flushed at the end, padded by
+    repeating their segments so every batch has ``batch_size`` rows.
+
+    ``dataset`` needs ``__len__``, ``num_proposals_of(i)`` and
+    ``load_segment(i, with_labels=False)``.
+    """
+
+    def __init__(
+        self, dataset, buckets: Sequence[int], batch_size: int,
+        feature_dim: int, num_objects: int,
+    ):
+        self.dataset = dataset
+        self.buckets = sorted(buckets)
+        self.batch_size = batch_size
+        self.feature_dim = feature_dim
+        self.num_objects = num_objects
+        self._bucket_of = [
+            pick_bucket(dataset.num_proposals_of(i), self.buckets)
+            for i in range(len(dataset))
+        ]
+
+    def __len__(self) -> int:
+        """Number of batches one pass yields."""
+        counts = np.bincount(self._bucket_of, minlength=max(self.buckets) + 1)
+        return int(sum(-(-counts[b] // self.batch_size) for b in self.buckets))
+
+    def _groups(self) -> Iterator[Tuple[int, List[int]]]:
+        pending: Dict[int, List[int]] = {b: [] for b in self.buckets}
+        for i in range(len(self.dataset)):
+            b = self._bucket_of[i]
+            pending[b].append(i)
+            if len(pending[b]) == self.batch_size:
+                yield b, pending[b]
+                pending[b] = []
+        for b, idxs in pending.items():
+            if idxs:
+                yield b, (idxs * self.batch_size)[: self.batch_size]
+
+    def __iter__(self):
+        for bucket, idxs in self._groups():
+            records = [self.dataset.load_segment(i, with_labels=False) for i in idxs]
+            bufs = batch_buffers(
+                records[0], len(records), bucket, self.num_objects, self.feature_dim,
+            )
+            for b, r in enumerate(records):
+                fill_padded(bufs, b, r, bucket)
+            yield bucket, bufs, [r.index for r in records], records

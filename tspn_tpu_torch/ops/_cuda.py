@@ -1,0 +1,81 @@
+"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+
+The sources under ``tspn_tpu_torch/csrc/`` expose plain C entry points,
+so they compile with ``nvcc`` alone in seconds, without PyTorch's
+headers. The library is built at first use into
+``build/tspn_tpu_torch/`` at the repository root, named by a hash of its
+source and flags, and rebuilt whenever that hash changes. Nothing here
+runs at import time: the CPU test suite imports every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "tspn_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: dict = {}
+build_seconds: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library(name: str) -> ctypes.CDLL:
+    """Build (unless this source's build exists) and load
+    ``csrc/<name>.cu``; loaded once per process. ``build_seconds[name]``
+    records the nvcc time of a build made by this process."""
+    if name in _loaded:
+        return _loaded[name]
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    so = BUILD_DIR / f"lib{name}_{digest}.so"
+    if not so.exists():
+        t0 = time.perf_counter()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) for {src}:\n{proc.stderr}"
+            )
+        os.replace(tmp, so)
+        build_seconds[name] = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(so))
+    _loaded[name] = lib
+    return lib
+
+
+def q8s_library() -> ctypes.CDLL:
+    lib = library("q8s")
+    fn = lib.tspn_q8s_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")

@@ -1,0 +1,412 @@
+"""Pair-feature normalization and predicate classification.
+
+Counterpart of ``tspn_tpu/ops/pairwise.py``. Two halves:
+
+* Weight and feature prep in numpy, copied from the JAX package so that
+  the port's device path needs neither jax nor h5py. Every copy is held
+  bit-exact against its original by ``tests/test_torch_pairwise.py``.
+  The 128-lane padding of the JAX package's ``*_fused``/``*_pad`` weight
+  keys is a TPU workaround and is not carried over.
+* The scorers in PyTorch. ``normalize_classify_q8s`` is the int8 x int8
+  segmented scorer: on a CUDA tensor it launches the hand-written kernel
+  in ``csrc/q8s.cu`` (or raises), on a CPU tensor it runs
+  ``normalize_classify_q8s_plain``, which is also the kernel's oracle.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tspn_tpu_torch.data.layout import DEFAULT_LAYOUT, FeatureLayout, round_up
+
+# kernel launches made by normalize_classify_q8s on CUDA tensors
+LAUNCHES = {"q8s": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ------------------------------------------------------------ layout prep
+@lru_cache(maxsize=None)
+def _permutation(layout: FeatureLayout = DEFAULT_LAYOUT) -> np.ndarray:
+    """storage column index for each device column (-1 = zero pad)."""
+    perm = np.full(layout.device_dim, -1, np.int64)
+    perm[: layout.head] = np.arange(layout.head)
+    perm[layout.head : layout.dev_head_dim] = np.arange(
+        layout.rel_start, layout.rel_start + layout.rel_dim
+    )
+    for k, start in enumerate(layout.bow_block_starts):
+        dst = layout.dev_head_pad + k * layout.dev_block
+        perm[dst : dst + layout.bow_block_size] = np.arange(
+            start, start + layout.bow_block_size
+        )
+    return perm
+
+
+def to_device_layout(feats: np.ndarray, layout: FeatureLayout = None) -> np.ndarray:
+    """(..., dim) storage layout -> (..., device_dim) device layout."""
+    if layout is None:
+        layout = FeatureLayout.from_dim(feats.shape[-1])
+    perm = _permutation(layout)
+    out = np.zeros(feats.shape[:-1] + (layout.device_dim,), feats.dtype)
+    valid = perm >= 0
+    out[..., valid] = np.asarray(feats)[..., perm[valid]]
+    return out
+
+
+def weights_to_device_layout(w: np.ndarray, layout: FeatureLayout = None) -> np.ndarray:
+    """(dim, R) -> (device_dim, R) matching to_device_layout."""
+    if layout is None:
+        layout = FeatureLayout.from_dim(w.shape[0])
+    perm = _permutation(layout)
+    out = np.zeros((layout.device_dim, w.shape[1]), w.dtype)
+    valid = perm >= 0
+    out[valid] = np.asarray(w)[perm[valid]]
+    return out
+
+
+def to_device_layout_q8(feats: np.ndarray, layout: FeatureLayout = None) -> tuple:
+    """(..., dim) storage floats -> (q (..., device_dim) int8, head_scale
+    (...,) f32). Head columns dequantize by head_scale; each BoW block is
+    max-scaled, a scale that L1 normalization cancels."""
+    if layout is None:
+        layout = FeatureLayout.from_dim(feats.shape[-1])
+    dev = to_device_layout(np.asarray(feats, np.float32), layout)
+    hp = layout.dev_head_pad
+    q = np.zeros(dev.shape, np.int8)
+
+    head = dev[..., :hp]
+    head_max = np.max(np.abs(head), axis=-1)
+    head_scale = np.where(head_max > 0, head_max / 127.0, 1.0).astype(np.float32)
+    q[..., :hp] = np.clip(
+        np.rint(head / head_scale[..., None]), -127, 127
+    ).astype(np.int8)
+
+    lead = dev.shape[:-1]
+    bow = dev[..., hp:].reshape(*lead, layout.num_bow_blocks, layout.dev_block)
+    bmax = np.max(np.abs(bow), axis=-1, keepdims=True)
+    bscale = np.where(bmax > 0, bmax / 127.0, 1.0)
+    q[..., hp:] = np.clip(np.rint(bow / bscale), -127, 127).reshape(
+        *lead, layout.num_bow_blocks * layout.dev_block
+    ).astype(np.int8)
+    return q, head_scale
+
+
+def quantize_weights_percol(w_dev: np.ndarray) -> tuple:
+    """(D, R) f32 -> (qW (D, R) int8, sW (R,) f32), per-column max scaling."""
+    w = np.asarray(w_dev, np.float32)
+    cmax = np.max(np.abs(w), axis=0)
+    sw = np.where(cmax > 0, cmax / 127.0, 1.0).astype(np.float32)
+    qw = np.clip(np.rint(w / sw[None, :]), -127, 127).astype(np.int8)
+    return qw, sw
+
+
+def precompute_q8_scales(
+    q: np.ndarray, head_scale: np.ndarray, layout: FeatureLayout = DEFAULT_LAYOUT
+) -> np.ndarray:
+    """(P, 16) f32 row multipliers: col 0 = head scale, cols
+    1..num_bow_blocks = 1/L1(q_block) (1 for empty blocks), rest zero."""
+    p = q.shape[0]
+    hp = layout.dev_head_pad
+    out = np.zeros((p, 16), np.float32)
+    out[:, 0] = head_scale
+    bow = np.abs(q[:, hp:].astype(np.int32)).reshape(
+        p, layout.num_bow_blocks, layout.dev_block
+    )
+    denom = bow.sum(axis=-1).astype(np.float32)
+    out[:, 1 : 1 + layout.num_bow_blocks] = 1.0 / np.where(denom > 0, denom, 1.0)
+    return out
+
+
+# ------------------------------------------------------- factored geometry
+class BlockGeom(NamedTuple):
+    """Geometry of a q8s row: a head slab of ``dev_head_pad`` columns
+    followed by ``num_bow_blocks`` blocks of ``dev_block`` columns
+    (duck-types FeatureLayout's fields)."""
+
+    dev_head_pad: int
+    num_bow_blocks: int = 0
+    dev_block: int = 1024
+
+    @property
+    def device_dim(self) -> int:
+        return self.dev_head_pad + self.num_bow_blocks * self.dev_block
+
+
+def tracklet_geom(layout: FeatureLayout = DEFAULT_LAYOUT) -> BlockGeom:
+    """Per-tracklet factored rows: [classeme C | pad to 128 | 4 x 1024]."""
+    return BlockGeom(
+        dev_head_pad=round_up(layout.classeme_dim, 128),
+        num_bow_blocks=layout.num_bow_blocks // 2,
+        dev_block=layout.dev_block,
+    )
+
+
+def rel_geom(layout: FeatureLayout = DEFAULT_LAYOUT) -> BlockGeom:
+    """Per-pair factored rows: [relative 3000 | pad to 3072], no blocks."""
+    return BlockGeom(dev_head_pad=round_up(layout.rel_dim, 128))
+
+
+def factor_tracklet_features_q8(
+    classemes: np.ndarray,   # (N, C) float
+    motion_bow: np.ndarray,  # (N, 4 * 1000) float, one role's BoW blocks
+    layout: FeatureLayout = DEFAULT_LAYOUT,
+) -> tuple:
+    """-> (q (N, trk_dim) int8, scales (N, 16) f32): col 0 = classeme
+    dequant scale, cols 1..4 = 1/L1 of each quantized BoW block."""
+    geom = tracklet_geom(layout)
+    n = classemes.shape[0]
+    c = layout.classeme_dim
+    bs = layout.bow_block_size
+    q = np.zeros((n, geom.device_dim), np.int8)
+    scales = np.zeros((n, 16), np.float32)
+
+    cmax = np.max(np.abs(classemes), axis=-1)
+    cscale = np.where(cmax > 0, cmax / 127.0, 1.0).astype(np.float32)
+    q[:, :c] = np.clip(
+        np.rint(classemes / cscale[:, None]), -127, 127
+    ).astype(np.int8)
+    scales[:, 0] = cscale
+
+    bow = np.asarray(motion_bow, np.float32).reshape(n, geom.num_bow_blocks, bs)
+    bmax = np.max(np.abs(bow), axis=-1, keepdims=True)
+    bscale = np.where(bmax > 0, bmax / 127.0, 1.0)
+    qb = np.clip(np.rint(bow / bscale), -127, 127).astype(np.int8)
+    for k in range(geom.num_bow_blocks):
+        lo = geom.dev_head_pad + k * geom.dev_block
+        q[:, lo : lo + bs] = qb[:, k]
+    denom = np.abs(qb.astype(np.int32)).sum(axis=-1).astype(np.float32)
+    scales[:, 1 : 1 + geom.num_bow_blocks] = 1.0 / np.where(denom > 0, denom, 1.0)
+    return q, scales
+
+
+def factor_rel_features_q8(
+    rel: np.ndarray, layout: FeatureLayout = DEFAULT_LAYOUT
+) -> tuple:
+    """(P, 3000) float -> (q (P, 3072) int8, scales (P, 16) f32 col 0)."""
+    geom = rel_geom(layout)
+    p = rel.shape[0]
+    q = np.zeros((p, geom.device_dim), np.int8)
+    rmax = np.max(np.abs(rel), axis=-1)
+    rscale = np.where(rmax > 0, rmax / 127.0, 1.0).astype(np.float32)
+    q[:, : layout.rel_dim] = np.clip(
+        np.rint(rel / rscale[:, None]), -127, 127
+    ).astype(np.int8)
+    scales = np.zeros((p, 16), np.float32)
+    scales[:, 0] = rscale
+    return q, scales
+
+
+def factor_expanded_rows_q8(
+    feats: np.ndarray,   # (P, dim) expanded storage rows
+    pairs: np.ndarray,   # (P, 2) tracklet indices
+    num_tracklets: int,
+    layout: FeatureLayout = None,
+) -> tuple:
+    """Factor expanded storage rows into per-tracklet + per-pair q8 rows.
+    Tracklet n's descriptors come from its earliest row in either role
+    (subject wins a same-row tie). -> (trk_q, trk_scales, rel_q, rel_scales)."""
+    if layout is None:
+        layout = FeatureLayout.from_dim(feats.shape[-1])
+    c = layout.classeme_dim
+    n = num_tracklets
+    half = layout.num_bow_blocks // 2 * layout.bow_block_size
+    cls = np.zeros((n, c), np.float32)
+    bow = np.zeros((n, half), np.float32)
+    p = pairs.shape[0]
+    first = np.full((n, 2), p, np.int64)  # (tracklet, role) -> row
+    for role in (0, 1):
+        ids, idx = np.unique(pairs[:, role].astype(np.int64), return_index=True)
+        keep = (ids >= 0) & (ids < n)
+        first[ids[keep], role] = idx[keep]
+    use_sub = first[:, 0] <= first[:, 1]
+    row = np.where(use_sub, first[:, 0], first[:, 1])
+    seen = row < p
+    sub_rows = seen & use_sub
+    obj_rows = seen & ~use_sub
+    cls[sub_rows] = feats[row[sub_rows], :c]
+    bow[sub_rows] = feats[row[sub_rows], layout.bow_start : layout.bow_start + half]
+    cls[obj_rows] = feats[row[obj_rows], c : 2 * c]
+    bow[obj_rows] = feats[row[obj_rows], layout.bow_start + half : layout.rel_start]
+    trk_q, trk_scales = factor_tracklet_features_q8(cls, bow, layout)
+    rel_q, rel_scales = factor_rel_features_q8(feats[:, layout.rel_start :], layout)
+    return trk_q, trk_scales, rel_q, rel_scales
+
+
+def split_weights_factored(w: np.ndarray, layout: FeatureLayout = None) -> dict:
+    """Split + per-column-quantize the storage-layout classifier (dim, R)
+    for the factored path: {"qw_trk" (trk_dim, 2R), "sw_trk" (2R,),
+    "qw_rel" (rel_pad, R), "sw_rel" (R,)}, subject role in output columns
+    [0, R) and object role in [R, 2R)."""
+    if layout is None:
+        layout = FeatureLayout.from_dim(w.shape[0])
+    c = layout.classeme_dim
+    bs = layout.bow_block_size
+    half_blocks = layout.num_bow_blocks // 2
+    geom_t = tracklet_geom(layout)
+    r = w.shape[1]
+
+    w_trk = np.zeros((geom_t.device_dim, 2 * r), np.float32)
+    w_trk[:c, :r] = w[:c]
+    w_trk[:c, r:] = w[c : 2 * c]
+    for k in range(half_blocks):
+        lo = geom_t.dev_head_pad + k * geom_t.dev_block
+        src_sub = layout.bow_start + k * bs
+        src_obj = layout.bow_start + (half_blocks + k) * bs
+        w_trk[lo : lo + bs, :r] = w[src_sub : src_sub + bs]
+        w_trk[lo : lo + bs, r:] = w[src_obj : src_obj + bs]
+
+    w_rel = np.zeros((rel_geom(layout).device_dim, r), np.float32)
+    w_rel[: layout.rel_dim] = w[layout.rel_start :]
+
+    qw_trk, sw_trk = quantize_weights_percol(w_trk)
+    qw_rel, sw_rel = quantize_weights_percol(w_rel)
+    return {"qw_trk": qw_trk, "sw_trk": sw_trk, "qw_rel": qw_rel, "sw_rel": sw_rel}
+
+
+# ---------------------------------------------------------------- scorers
+def normalize_classify(
+    feats: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+    layout: FeatureLayout = None,
+) -> torch.Tensor:
+    """Raw storage-layout rows (..., dim) -> (..., R): L1-normalize the
+    eight BoW blocks (a zero block stays zero), then ``@ w + b``."""
+    if layout is None:
+        layout = FeatureLayout.from_dim(feats.shape[-1])
+    lead = feats.shape[:-1]
+    head = feats[..., : layout.head]
+    bow = feats[..., layout.head : layout.rel_start].reshape(
+        *lead, layout.num_bow_blocks, layout.bow_block_size
+    )
+    denom = bow.abs().sum(dim=-1, keepdim=True)
+    bow_n = (bow / torch.where(denom > 0, denom, torch.ones_like(denom))).reshape(
+        *lead, layout.num_bow_blocks * layout.bow_block_size
+    )
+    xn = torch.cat([head, bow_n, feats[..., layout.rel_start :]], dim=-1)
+    return xn @ w + b
+
+
+def normalize_classify_q8s_plain(
+    q: torch.Tensor,       # (P, D) int8
+    scales: torch.Tensor,  # (P, 16) f32, precompute_q8_scales
+    qw_t: torch.Tensor,    # (R, D) int8, K-major
+    sw: torch.Tensor,      # (R,) f32
+    b: torch.Tensor,       # (R,) f32
+    geom,
+) -> torch.Tensor:
+    """Plain version of the q8s kernel: -> (P, R) f32.
+
+    The integer products are summed in float64, which is exact here
+    (|sum| <= 127^2 * 11264 < 2^53) and runs on every device (PyTorch has
+    no int32 GEMM on CUDA). Each segment's exact sum is rounded to f32
+    and folded in the kernel's order: head, then blocks 0..nb-1, then
+    ``acc * sw + b``; so the kernel must equal this bit for bit.
+    """
+    hp, nb, blk = geom.dev_head_pad, geom.num_bow_blocks, geom.dev_block
+    qd = q.to(torch.float64)
+    wd = qw_t.to(torch.float64)
+
+    def seg(lo, hi):
+        return (qd[:, lo:hi] @ wd[:, lo:hi].T).to(torch.float32)
+
+    acc = seg(0, hp) * scales[:, 0:1]
+    for k in range(nb):
+        lo = hp + k * blk
+        acc = acc + seg(lo, lo + blk) * scales[:, k + 1 : k + 2]
+    return acc * sw + b
+
+
+def _q8s_cuda(q, scales, qw_t, sw, b, geom) -> torch.Tensor:
+    from tspn_tpu_torch.ops import _cuda
+
+    p, d = q.shape
+    r = qw_t.shape[0]
+    hp, nb, blk = geom.dev_head_pad, geom.num_bow_blocks, geom.dev_block
+    tensors = (q, scales, qw_t, sw, b)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("q8s: all operands must be on one device")
+    if q.dtype != torch.int8 or qw_t.dtype != torch.int8:
+        raise TypeError("q8s: q and qw_t must be int8")
+    if any(t.dtype != torch.float32 for t in (scales, sw, b)):
+        raise TypeError("q8s: scales, sw and b must be float32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("q8s: operands must be contiguous")
+    if (qw_t.shape != (r, d) or scales.shape != (p, 16)
+            or sw.shape != (r,) or b.shape != (r,)):
+        raise ValueError(
+            f"q8s: bad shapes q {tuple(q.shape)} scales {tuple(scales.shape)} "
+            f"qw_t {tuple(qw_t.shape)} sw {tuple(sw.shape)} b {tuple(b.shape)}"
+        )
+    if d != geom.device_dim or hp % 64 or blk % 64 or nb > 15:
+        raise ValueError(f"q8s: geometry {geom} does not fit width {d}")
+    if q.data_ptr() % 16 or qw_t.data_ptr() % 16:
+        raise ValueError("q8s: q and qw_t must be 16-byte aligned")
+    out = torch.empty((p, r), dtype=torch.float32, device=q.device)
+    if p == 0:
+        return out
+    lib = _cuda.q8s_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.tspn_q8s_launch(
+            q.data_ptr(), scales.data_ptr(), qw_t.data_ptr(), sw.data_ptr(),
+            b.data_ptr(), out.data_ptr(), p, r, d, hp, blk,
+            ctypes.c_void_p(stream),
+        )
+    _cuda.check(err, "tspn_q8s_launch")
+    LAUNCHES["q8s"] += 1
+    return out
+
+
+def normalize_classify_q8s(q, scales, qw_t, sw, b, geom) -> torch.Tensor:
+    """int8 x int8 segmented scorer, (P, D) -> (P, R) f32: the kernel on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    if q.device.type == "cuda":
+        return _q8s_cuda(q, scales, qw_t, sw, b, geom)
+    if q.device.type == "cpu":
+        return normalize_classify_q8s_plain(q, scales, qw_t, sw, b, geom)
+    raise ValueError(f"q8s: no implementation for device {q.device}")
+
+
+def factored_classify_q8_batched(
+    trk_q: torch.Tensor,       # (B, N, trk_dim) int8
+    trk_scales: torch.Tensor,  # (B, N, 16) f32
+    rel_q: torch.Tensor,       # (B, P, rel_pad) int8
+    rel_scales: torch.Tensor,  # (B, P, 16) f32
+    pairs: torch.Tensor,       # (B, P, 2) int, tracklet index per rel row
+    wq: dict,                  # qw_trk_t, sw_trk, qw_rel_t, sw_rel tensors
+    b: torch.Tensor,
+    layout: FeatureLayout = DEFAULT_LAYOUT,
+    q8s=normalize_classify_q8s,
+) -> torch.Tensor:
+    """Factored scoring of padded segment batches -> (B, P, R) f32:
+    ``y + A_sub[sub] + A_obj[obj]`` with A = the tracklet pass (B, N, 2R)
+    and y = the rel pass plus bias. The JAX package expands A with a
+    one-hot matmul (TPU row gathers scalarize); here it is an index
+    gather, which is exactly equal. Pair indices must lie in [0, N).
+    ``q8s`` is the segmented scorer the two passes run."""
+    bsz, n, _ = trk_q.shape
+    p = rel_q.shape[1]
+    r = b.shape[0]
+    a = q8s(
+        trk_q.reshape(bsz * n, -1), trk_scales.reshape(bsz * n, -1),
+        wq["qw_trk_t"], wq["sw_trk"], torch.zeros_like(wq["sw_trk"]),
+        tracklet_geom(layout),
+    ).reshape(bsz, n, 2 * r)
+    y = q8s(
+        rel_q.reshape(bsz * p, -1), rel_scales.reshape(bsz * p, -1),
+        wq["qw_rel_t"], wq["sw_rel"], b, rel_geom(layout),
+    ).reshape(bsz, p, r)
+    sub = pairs[..., 0].long().unsqueeze(-1).expand(bsz, p, r)
+    obj = pairs[..., 1].long().unsqueeze(-1).expand(bsz, p, r)
+    return (
+        y
+        + torch.gather(a[..., :r], 1, sub)
+        + torch.gather(a[..., r:], 1, obj)
+    )

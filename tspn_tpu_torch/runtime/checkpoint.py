@@ -1,0 +1,128 @@
+"""Checkpoints: weights carried across from the JAX package, and native
+save / load (counterpart of tspn_tpu/runtime/checkpoint.py).
+
+A JAX checkpoint is flax msgpack: a map {params, opt_state, meta} whose
+array leaves are msgpack ext type 1 with payload ``(shape, dtype name,
+bytes)``. It is decoded here with ``msgpack`` alone (imported lazily),
+so serving a JAX-trained model needs neither jax nor flax. Native
+checkpoints are ``torch.save`` zip files; both keep the
+``<name>_weights_iter_<N>.pt`` naming.
+"""
+
+from __future__ import annotations
+
+import os
+import zipfile
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+_EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
+
+
+def _ndarray_from_bytes(data: bytes) -> np.ndarray:
+    import msgpack
+
+    shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
+    if dtype_name == b"bfloat16":
+        raise NotImplementedError("bfloat16 checkpoint leaves are not supported")
+    return np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode())).reshape(shape)
+
+
+def _ext_hook(code: int, data: bytes):
+    import msgpack
+
+    if code == _EXT_NDARRAY:
+        return _ndarray_from_bytes(data)
+    if code == _EXT_NPSCALAR:
+        return _ndarray_from_bytes(data)[()]
+    return msgpack.ExtType(code, data)
+
+
+def _check_unchunked(tree) -> None:
+    if isinstance(tree, dict):
+        if "__msgpack_chunked_array__" in tree:
+            raise NotImplementedError(
+                "chunked (> 1 GiB) array leaves are not supported"
+            )
+        for v in tree.values():
+            _check_unchunked(v)
+
+
+def load_jax_checkpoint(path: str) -> dict:
+    """Template-free read of a flax msgpack checkpoint ->
+    {params, opt_state, step, loss} with numpy leaves (the contract of
+    tspn_tpu/runtime/checkpoint.py::load_checkpoint_raw)."""
+    import msgpack
+
+    with open(path, "rb") as f:
+        restored = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
+    _check_unchunked(restored)
+    meta = restored.get("meta", {})
+    return {
+        "params": restored.get("params", {}),
+        "opt_state": restored.get("opt_state") or None,
+        "step": int(meta.get("step", 0)),
+        "loss": float(meta.get("loss", 0.0)),
+    }
+
+
+def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """Map the JAX model's param tree (numpy leaves) to TSPNModel's
+    state dict. flax Dense keeps its kernel as (in, out); nn.Linear keeps
+    (out, in), so the kernel is transposed."""
+    if "ppn_head" in params:
+        raise NotImplementedError("PPN head weights: ROADMAP queue 1, item 3")
+    cls = params["classifier"]
+    if "rel_predictor" not in cls:
+        raise NotImplementedError("fused classifier weights: ROADMAP queue 2, K3")
+    dense = cls["rel_predictor"]
+    kernel = np.asarray(dense["kernel"], np.float32)
+    return {
+        "classifier.rel_predictor.weight": torch.from_numpy(
+            np.ascontiguousarray(kernel.T)
+        ),
+        "classifier.rel_predictor.bias": torch.from_numpy(
+            np.array(dense["bias"], np.float32)
+        ),
+    }
+
+
+def save_checkpoint(path: str, model: torch.nn.Module, step: int = 0,
+                    loss: float = 0.0) -> str:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save({"model": model.state_dict(), "step": step, "loss": loss}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str) -> dict:
+    """Either format -> {state_dict, step, loss}: a torch.save zip file,
+    or a JAX flax msgpack checkpoint carried across."""
+    if zipfile.is_zipfile(path):
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+        return {"state_dict": blob["model"], "step": int(blob["step"]),
+                "loss": float(blob["loss"])}
+    raw = load_jax_checkpoint(path)
+    return {"state_dict": state_dict_from_jax(raw["params"]),
+            "step": raw["step"], "loss": raw["loss"]}
+
+
+def latest_checkpoint(model_dir: str, model_name: str) -> Optional[str]:
+    """Highest-iteration '<name>_weights_iter_<N>.pt' in model_dir."""
+    if not os.path.isdir(model_dir):
+        return None
+    best, best_iter = None, -1
+    prefix = f"{model_name}_weights_iter_"
+    for fname in os.listdir(model_dir):
+        if fname.startswith(prefix) and fname.endswith(".pt"):
+            try:
+                it = int(fname[len(prefix):-3])
+            except ValueError:
+                continue
+            if it > best_iter:
+                best, best_iter = os.path.join(model_dir, fname), it
+    return best

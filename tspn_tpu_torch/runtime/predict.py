@@ -1,0 +1,307 @@
+"""Short-term relation prediction over test segments (segment mode).
+
+Counterpart of tspn_tpu/runtime/predict.py without the PPN-pruned path
+and the device mesh. Per segment batch: score every pair, take a
+two-stage top-k on the device (top TOPK_PER_PAIR predicates per pair,
+then top TOPK_PER_SEG (pair, predicate) entries per segment), read the
+selection back, and assemble triplets on the host. Three scorers, picked
+by the dataset:
+
+* q8f (factored int8 store): ``factored_classify_q8_batched``, two q8s
+  kernel launches per batch;
+* q8 (expanded int8 rows): one q8s kernel launch per batch;
+* f32 (per-file or f32 store): the model's nn.Linear.
+
+The readback is synchronous: each batch is scored and read back before
+the next is assembled.
+
+Output contract, as in the JAX package: {(vid, fstart, fend):
+(predictions, iou, trackid)} with predictions = [(score, (s_cls, pred,
+o_cls), (s_tid, o_tid)), ...].
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from tspn_tpu_torch.data.layout import FeatureLayout
+from tspn_tpu_torch.data.loader import BucketedLoader
+from tspn_tpu_torch.ops import pairwise as pw
+
+def select_topk(
+    rel_prob: torch.Tensor,   # (B, P, R)
+    pair_mask: torch.Tensor,  # (B, P)
+    topk_per_pair: int,
+    topk_per_seg: int,
+):
+    """Batched two-stage top-k -> (scores, pair_idx, pred_idx, valid),
+    each (B, K). Masked pairs score -inf, so ``valid`` marks the finite
+    selections and invalid scores read 0."""
+    bsz, p, r = rel_prob.shape
+    k1 = min(topk_per_pair, r)
+    per_pair_scores, per_pair_preds = torch.topk(rel_prob, k1, dim=-1)
+    masked = torch.where(
+        pair_mask[..., None] > 0, per_pair_scores,
+        torch.full_like(per_pair_scores, -float("inf")),
+    )
+    k2 = min(topk_per_seg, p * k1)
+    flat_scores, flat_idx = torch.topk(masked.reshape(bsz, -1), k2, dim=-1)
+    pair_idx = torch.div(flat_idx, k1, rounding_mode="floor")
+    pred_idx = torch.gather(per_pair_preds.reshape(bsz, -1), 1, flat_idx)
+    valid = torch.isfinite(flat_scores)
+    return (
+        torch.where(valid, flat_scores, torch.zeros_like(flat_scores)),
+        pair_idx.to(torch.int32),
+        pred_idx.to(torch.int32),
+        valid,
+    )
+
+
+def classifier_weights(model) -> Tuple[np.ndarray, np.ndarray]:
+    """(W (dim, R), b (R,)) float32 numpy from the model's nn.Linear."""
+    lin = model.classifier.rel_predictor
+    w = lin.weight.detach().to("cpu", torch.float32).numpy().T
+    b = lin.bias.detach().to("cpu", torch.float32).numpy()
+    return np.ascontiguousarray(w), b.copy()
+
+
+def q8_classifier_weights(w: np.ndarray, b: np.ndarray, layout: FeatureLayout,
+                          device) -> dict:
+    """Expanded-path weights: device-layout, per-column int8, transposed
+    once to (R, device_dim) K-major."""
+    qw, sw = pw.quantize_weights_percol(pw.weights_to_device_layout(w, layout))
+    return {
+        "qw_t": torch.from_numpy(np.ascontiguousarray(qw.T)).to(device),
+        "sw": torch.from_numpy(sw).to(device),
+        "b": torch.from_numpy(np.asarray(b, np.float32)).to(device),
+        "layout": layout,
+    }
+
+
+def q8f_classifier_weights(w: np.ndarray, b: np.ndarray, layout: FeatureLayout,
+                           device) -> dict:
+    """Factored-path weights (split_weights_factored), int8 transposed
+    once to K-major."""
+    wq = pw.split_weights_factored(w, layout)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return {
+        "wq": {
+            "qw_trk_t": put(wq["qw_trk"].T), "sw_trk": put(wq["sw_trk"]),
+            "qw_rel_t": put(wq["qw_rel"].T), "sw_rel": put(wq["sw_rel"]),
+        },
+        "b": put(np.asarray(b, np.float32)),
+        "layout": layout,
+    }
+
+
+def make_q8f_scorer(weights: dict, q8s=pw.normalize_classify_q8s) -> Callable:
+    wq, b, layout = weights["wq"], weights["b"], weights["layout"]
+
+    def score(batch):
+        return pw.factored_classify_q8_batched(
+            batch["trk_feats"], batch["trk_scales"], batch["feats"],
+            batch["feat_scale"], batch["pairs"], wq, b, layout=layout, q8s=q8s,
+        )
+
+    return score
+
+
+def make_q8_scorer(weights: dict, q8s=pw.normalize_classify_q8s) -> Callable:
+    geom = weights["layout"]
+
+    def score(batch):
+        feats, scales = batch["feats"], batch["feat_scale"]
+        lead = feats.shape[:-1]
+        out = q8s(
+            feats.reshape(-1, feats.shape[-1]), scales.reshape(-1, 16),
+            weights["qw_t"], weights["sw"], weights["b"], geom,
+        )
+        return out.reshape(*lead, out.shape[-1])
+
+    return score
+
+
+def make_f32_scorer(model) -> Callable:
+    def score(batch):
+        return model(batch)["rel_logits"]
+
+    return score
+
+
+# batch leaves each scorer reads; nothing else is copied to the device
+_KEYS = {
+    "q8f": ("trk_feats", "trk_scales", "feats", "feat_scale", "pairs", "pair_mask"),
+    "q8": ("feats", "feat_scale", "pair_mask"),
+    "f32": ("feats", "pair_mask"),
+}
+
+
+def dataset_mode(dataset) -> str:
+    if getattr(dataset, "factored", False):
+        return "q8f"
+    if getattr(dataset, "quantized", False):
+        return "q8"
+    return "f32"
+
+
+def build_infer(model, mode: str, layout: FeatureLayout, topk_per_pair: int,
+                topk_per_seg: int, device, plain: bool = False) -> Callable:
+    """-> infer(batch of numpy leaves) -> (scores, pair_idx, pred_idx,
+    valid) numpy arrays, each (B, K). ``plain=True`` scores with the plain
+    PyTorch version of every kernel, on any device."""
+    device = torch.device(device)
+    q8s = pw.normalize_classify_q8s_plain if plain else pw.normalize_classify_q8s
+    if mode == "f32":
+        score = make_f32_scorer(model)
+    else:
+        w, b = classifier_weights(model)
+        if mode == "q8f":
+            score = make_q8f_scorer(
+                q8f_classifier_weights(w, b, layout, device), q8s
+            )
+        else:
+            score = make_q8_scorer(
+                q8_classifier_weights(w, b, layout, device), q8s
+            )
+    keys = _KEYS[mode]
+
+    @torch.no_grad()
+    def infer(batch):
+        dev = {k: torch.from_numpy(batch[k]).to(device) for k in keys}
+        rel_prob = torch.sigmoid(score(dev))
+        out = select_topk(rel_prob, dev["pair_mask"], topk_per_pair, topk_per_seg)
+        return tuple(t.cpu().numpy() for t in out)
+
+    return infer
+
+
+def predict_segments(
+    model, dataset, *, device, buckets: Sequence[int] = (8, 16, 24, 32),
+    batch_size: int = 1, topk_per_pair: int = 20, topk_per_seg: int = 200,
+    num_objects: int = 35, feature_dim: int = None, logger=None,
+    plain: bool = False,
+) -> Dict[Tuple[str, int, int], tuple]:
+    """Relation prediction over every segment of ``dataset`` (a per-file
+    SegmentDataset, a consolidated store, or in-memory records); the
+    store's mode (q8f, q8, f32) picks the scorer. The f32 scorer runs
+    ``model`` itself, which must then be on ``device``; the int8 scorers
+    quantize its weights onto ``device``. Segments with at most one
+    proposal yield no entry. -> {(vid, fstart, fend): (predictions, iou,
+    trackid)}."""
+    mode = dataset_mode(dataset)
+    layout = FeatureLayout.for_objects(num_objects)
+    if feature_dim is None:
+        feature_dim = (
+            dataset.feature_width() if hasattr(dataset, "feature_width")
+            else layout.dim
+        )
+    loader = BucketedLoader(
+        dataset, buckets=buckets, batch_size=batch_size,
+        feature_dim=feature_dim, num_objects=num_objects,
+    )
+    infer = build_infer(model, mode, layout, topk_per_pair, topk_per_seg,
+                        device, plain=plain)
+
+    short_term_relations: Dict[Tuple[str, int, int], tuple] = {}
+    seen = set()
+    for _bucket, batch, indices, records in loader:
+        scores_b, pair_idx_b, pred_idx_b, valid_b = infer(batch)
+        for b, index in enumerate(indices):
+            if index in seen:  # end-of-pass padding repeats segments
+                continue
+            seen.add(index)
+            record = records[b]
+            if record.num_proposals <= 1:
+                if logger:
+                    logger.info(f"No relation exists in video segment {index}")
+                continue
+            pairs = batch["pairs"][b]
+            cls_logits = record.cls_logits
+            obj_labels = (
+                np.argmax(cls_logits, axis=1) if cls_logits.size
+                else np.zeros(record.num_proposals, np.int64)
+            )
+            ok = np.asarray(valid_b[b], bool)
+            tids = pairs[pair_idx_b[b][ok]].astype(np.int64)  # (M, 2)
+            triplets = np.stack(
+                [
+                    obj_labels[tids[:, 0]],
+                    pred_idx_b[b][ok].astype(np.int64),
+                    obj_labels[tids[:, 1]],
+                ],
+                axis=1,
+            )
+            predictions = list(zip(scores_b[b][ok].astype(np.float32), triplets, tids))
+            short_term_relations[index] = (
+                predictions, np.asarray(record.iou), np.asarray(record.trackid)
+            )
+    return short_term_relations
+
+
+def predict(cfg, basedata, device, logger=None):
+    """Checkpoint-loading entry point (counterpart of the JAX package's
+    ``predict``): reads the test split through the JAX package's dataset
+    readers (imported here, not at module import: they need h5py) and
+    scores it on ``device``."""
+    from tspn_tpu.data.segments import get_model_path
+    from tspn_tpu_torch.models.tspn import build_model
+    from tspn_tpu_torch.runtime.checkpoint import load_checkpoint
+
+    if cfg.RELPN.USE_PPN:
+        raise NotImplementedError("PPN: ROADMAP queue 1, item 3")
+    if cfg.MODEL.get("FUSED_CLASSIFIER", False):
+        raise NotImplementedError("fused classifier: ROADMAP queue 2, K3")
+    phase = basedata.infer_test_split()
+    mode = str(cfg.PREDICT.get("CONSOLIDATED", "") or "")
+    if mode:
+        from tspn_tpu.data.preprocess import ConsolidatedSegmentDataset, consolidated_path
+
+        path = consolidated_path(phase)
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"PREDICT.CONSOLIDATED={mode!r} but {path} does not exist; run "
+                "base.py --preprocess with the same config first"
+            )
+        dataset = ConsolidatedSegmentDataset(cfg, path)
+        if dataset.store.mode != mode:
+            raise ValueError(
+                f"PREDICT.CONSOLIDATED={mode!r} but {path} was consolidated "
+                f"as {dataset.store.mode!r}"
+            )
+    else:
+        from tspn_tpu.data.vrdataset import SegmentDataset
+
+        if cfg.MODEL.get("DTYPE", "float32") != "float32":
+            raise NotImplementedError("the f32 scorer runs in float32 only")
+        dataset = SegmentDataset(cfg, basedata, phase=phase)
+    if len(dataset) == 0:
+        raise ValueError("no test segments with cached features found")
+
+    model = build_model(
+        num_predicates=cfg.PREDICT.PREDICATE_NUM,
+        feature_dim=cfg.PREDICT.FEATURE_DIM,
+    )
+    ckpt = os.path.join(get_model_path(), cfg.ETC.MODEL_DUMP_FILE)
+    restored = load_checkpoint(ckpt)
+    model.load_state_dict(restored["state_dict"])
+    model.to(device).eval()
+    if logger:
+        logger.info(f"=> checkpoint loaded from {ckpt} (iter {restored['step']})")
+        logger.info("predicting short-term visual relation...")
+    return predict_segments(
+        model, dataset, device=device,
+        buckets=cfg.BUCKETS.NUM_TRACKLETS,
+        batch_size=cfg.DATASET.TEST_BATCH_SIZE,
+        topk_per_pair=cfg.PREDICT.TOPK_PER_PAIR,
+        topk_per_seg=cfg.PREDICT.TOPK_PER_SEG,
+        num_objects=cfg.PREDICT.OBJECT_NUM,
+        feature_dim=None if mode else cfg.PREDICT.FEATURE_DIM,
+        logger=logger,
+    )
