@@ -5,8 +5,11 @@
 * A flax-initialized model and the port's model loaded through
   state_dict_from_jax give equal f32 logits (rtol 1e-5, atol 1e-6: the
   two frameworks' f32 GEMMs sum in different orders).
+* The same holds for the fused classifier (``classifier/kernel`` in the
+  device layout), whose JAX forward on the CPU is the XLA path.
 * Native torch.save checkpoints round-trip, and load_checkpoint reads
-  both formats.
+  both formats; a training checkpoint also carries the optimizer, the LR
+  scheduler and the plateau state, and only such a checkpoint resumes.
 """
 
 import jax
@@ -99,14 +102,64 @@ def test_seeded_init_statistics():
     assert float(a.classifier.rel_predictor.bias.abs().max()) == 0.0
 
 
+def test_bridged_fused_model_logits_match():
+    model = JaxTSPNModel(num_predicates=R, use_ppn=False, use_dpn=False,
+                         fused_classifier=True)
+    rng = np.random.RandomState(1)
+    feats = (rng.rand(2, 12, 11264) * (rng.rand(2, 12, 11264) < 0.2)).astype(np.float32)
+    params = jax.tree_util.tree_map(
+        np.asarray, model.init(jax.random.PRNGKey(6), {"feats": feats})["params"])
+    ref = np.asarray(model.apply({"params": params}, {"feats": feats})["rel_logits"])
+    port = build_model(num_predicates=R, fused_classifier=True, inference=True)
+    port.load_state_dict(tckpt.state_dict_from_jax(params))
+    with torch.no_grad():
+        out = port({"feats": torch.from_numpy(feats)})["rel_logits"].numpy()
+    assert out.shape == ref.shape == (2, 12, R)
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_training_checkpoint_round_trip(tmp_path):
+    from tspn_tpu_torch.solver.optim import ReduceOnPlateauState, build_optimizer
+    from tspn_tpu.config import get_default_config
+
+    port = build_model(num_predicates=R, fused_classifier=True, seed=1)
+    optimizer, scheduler = build_optimizer(get_default_config().SOLVER, port)
+    for p in port.parameters():
+        p.grad = torch.ones_like(p)
+    optimizer.step()
+    scheduler.step()
+    plateau = ReduceOnPlateauState().update(0.5).update(0.7)
+    path = tckpt.save_checkpoint(str(tmp_path / "x_weights_iter_1.pt"), port, step=1,
+                                 loss=0.5, optimizer=optimizer, scheduler=scheduler,
+                                 plateau=plateau)
+    restored = tckpt.load_training_checkpoint(path)
+    assert restored["step"] == 1 and restored["native"]
+    assert ReduceOnPlateauState(**restored["plateau"]) == plateau
+    assert restored["scheduler"]["last_epoch"] == 1
+    fresh, _ = build_optimizer(get_default_config().SOLVER,
+                               build_model(num_predicates=R, fused_classifier=True))
+    fresh.load_state_dict(restored["optimizer"])
+    for a, b in zip(fresh.state.values(), optimizer.state.values()):
+        assert torch.equal(a["exp_avg"], b["exp_avg"])
+    bare = tckpt.save_checkpoint(str(tmp_path / "x_weights_iter_2.pt"), port)
+    with pytest.raises(ValueError):
+        tckpt.load_training_checkpoint(bare)
+
+
 @pytest.mark.parametrize("what", ["ppn", "fused", "ppn_weights", "fused_weights"])
-def test_unported_parts_raise(what):
+def test_unported_parts_raise(what, jax_params, tmp_path):
+    """PPN raises; so do the fused classifier in bf16 (queued) and a
+    JAX checkpoint given to --resume (its optax state is not carried
+    across)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "ppn":
             build_model(use_ppn=True)
         elif what == "fused":
-            build_model(fused_classifier=True)
+            model = build_model(num_predicates=R, fused_classifier=True)
+            model({"feats": torch.zeros((1, 2, 11264), dtype=torch.bfloat16)})
         elif what == "ppn_weights":
             tckpt.state_dict_from_jax({"classifier": {}, "ppn_head": {}})
         else:
-            tckpt.state_dict_from_jax({"classifier": {"kernel": np.zeros((2, 2))}})
+            path = str(tmp_path / "baseline_weights_iter_3.pt")
+            jckpt.save_checkpoint(path, jax_params[1], step=3)
+            tckpt.load_training_checkpoint(path)

@@ -3,7 +3,13 @@
 * ``base.py --detect`` (JAX) and ``python -m tspn_tpu_torch.base --detect
   --device cpu`` serve one JAX checkpoint on the synthetic set, per-file
   f32 and from a q8f store; relation mAP and R@50 / R@100 agree within
-  1e-4 (tspn_tpu.evaluation).
+  1e-4 (tspn_tpu.evaluation). The same holds for a fused-classifier
+  checkpoint that ``base.py --train`` wrote, served per-file f32 (the
+  fused kernel's plain version) and from the q8f store (its weights
+  carried back to the storage layout).
+* The port's ``--train --detect`` writes a checkpoint and a valid
+  prediction JSON, and ``--train --resume`` continues at the
+  checkpoint's step.
 * The device path of the port imports none of jax, flax, h5py, yaml,
   msgpack or tspn_tpu: a subprocess whose import system refuses them
   imports every module of tspn_tpu_torch and chip_smoke.
@@ -32,7 +38,7 @@ def _env():
     return env
 
 
-def _write_config(path, consolidated, num_predicates):
+def _write_config(path, consolidated, num_predicates, dump=DUMP, **overrides):
     from tspn_tpu.config import get_default_config
 
     cfg = get_default_config()
@@ -41,7 +47,8 @@ def _write_config(path, consolidated, num_predicates):
     # needs PREDICATE_NUM to match it
     cfg.PREDICT.PREDICATE_NUM = num_predicates
     cfg.PREDICT.CONSOLIDATED = consolidated
-    cfg.ETC.MODEL_DUMP_FILE = DUMP
+    cfg.ETC.MODEL_DUMP_FILE = dump
+    cfg.merge_from_dict(overrides)
     with open(path, "w") as f:
         f.write(cfg.dump())
     return cfg
@@ -104,15 +111,10 @@ def _metrics(work, payload):
     return np.array([mean_ap, rec_at_n[50], rec_at_n[100]])
 
 
-@pytest.mark.parametrize("mode", ["f32", "q8f"])
-def test_detect_matches_jax_cli(mode, served_workdir):
+def _run_jax_base(work, args):
     import base as jax_base
     from tspn_tpu.data.segments import get_output_dir, set_output_dir
 
-    work = served_workdir
-    out = work / "vidvrd-baseline-output" / "models" / "baseline_relation_prediction.json"
-    args = ["--config", f"{mode}.yaml", "--data_dir", "data", "--dataset",
-            "vidvrd", "--detect"]
     cwd, prev_out, argv = os.getcwd(), get_output_dir(), sys.argv
     os.chdir(work)
     try:
@@ -122,33 +124,127 @@ def test_detect_matches_jax_cli(mode, served_workdir):
         sys.argv = argv
         os.chdir(cwd)
         set_output_dir(prev_out)
-    with open(out) as f:
-        ref = json.load(f)
-    os.remove(out)
 
+
+def _run_port_base(work, args):
     proc = subprocess.run(
         [sys.executable, "-m", "tspn_tpu_torch.base", *args, "--device", "cpu"],
         cwd=work, env=_env(), capture_output=True, text=True, timeout=600,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc
+
+
+def _prediction_path(work):
+    return work / "vidvrd-baseline-output" / "models" / "baseline_relation_prediction.json"
+
+
+def _assert_port_detect_matches_jax(work, config, informative=True):
+    out = _prediction_path(work)
+    args = ["--config", config, "--data_dir", "data", "--dataset", "vidvrd",
+            "--detect"]
+    _run_jax_base(work, args)
+    with open(out) as f:
+        ref = json.load(f)
+    os.remove(out)
+
+    _run_port_base(work, args)
     with open(out) as f:
         got = json.load(f)
+    os.remove(out)
     assert got["version"] == "VERSION 1.0"
     assert set(got["results"]) == set(ref["results"])
     m_ref, m_got = _metrics(work, ref), _metrics(work, got)
-    assert m_ref[0] > 0.3, m_ref  # the checkpoint is informative
+    if informative:
+        assert m_ref[0] > 0.3, m_ref  # the checkpoint is informative
     np.testing.assert_allclose(m_got, m_ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["f32", "q8f"])
+def test_detect_matches_jax_cli(mode, served_workdir):
+    _assert_port_detect_matches_jax(served_workdir, f"{mode}.yaml")
+
+
+FUSED_ITERS = 30
+
+
+def _train_overrides(name, max_iter):
+    return {
+        "MODEL": {"NAME": name, "FUSED_CLASSIFIER": True},
+        "SOLVER": {"MAX_ITER": max_iter,
+                   "SCHEDULER": {"MILESTONES": [20, 25], "WARMUP_ITERS": 5}},
+        "BUCKETS": {"SEGMENTS_PER_STEP": 2},
+        "MESH": {"NUM_DEVICES": 1},
+        "ETC": {"SAVE_FREQ": 1000, "DISPLAY_FREQ": 10},
+    }
+
+
+@pytest.fixture(scope="module")
+def fused_trained(served_workdir):
+    """A fused-classifier checkpoint written by ``base.py --train``, and
+    its configs for per-file f32 and q8f serving."""
+    from tspn_tpu.data.annotations import VidVRD
+
+    work = served_workdir
+    data = work / "data" / "vidvrd"
+    num_predicates = VidVRD(str(data), str(data / "videos"),
+                            ["train", "test"]).get_predicate_num()
+    dump = f"jaxfused_weights_iter_{FUSED_ITERS}.pt"
+    for mode in ("f32", "q8f"):
+        _write_config(work / f"fused_{mode}.yaml", "q8f" if mode == "q8f" else "",
+                      num_predicates, dump=dump,
+                      **_train_overrides("jaxfused", FUSED_ITERS))
+    _run_jax_base(work, ["--config", "fused_f32.yaml", "--data_dir", "data",
+                         "--dataset", "vidvrd", "--train"])
+    assert (work / "vidvrd-baseline-output" / "models" / dump).exists()
+    return work, num_predicates
+
+
+@pytest.mark.parametrize("mode", ["f32", "q8f"])
+def test_detect_fused_checkpoint_matches_jax_cli(mode, fused_trained):
+    work, _num_predicates = fused_trained
+    _assert_port_detect_matches_jax(work, f"fused_{mode}.yaml", informative=False)
+
+
+def test_port_train_detect_and_resume(fused_trained):
+    from tspn_tpu_torch.runtime.checkpoint import load_checkpoint
+
+    work, num_predicates = fused_trained
+    models = work / "vidvrd-baseline-output" / "models"
+    for iters in (4, 6):
+        _write_config(work / f"port_train_{iters}.yaml", "", num_predicates,
+                      dump=f"porttrain_weights_iter_{iters}.pt",
+                      **_train_overrides("porttrain", iters))
+    args = ["--data_dir", "data", "--dataset", "vidvrd"]
+    _run_port_base(work, ["--config", "port_train_4.yaml", *args, "--train",
+                          "--detect"])
+    assert load_checkpoint(str(models / "porttrain_weights_iter_4.pt"))["step"] == 4
+    out = _prediction_path(work)
+    with open(out) as f:
+        got = json.load(f)
+    os.remove(out)
+    assert got["version"] == "VERSION 1.0" and got["results"]
+    for entries in got["results"].values():
+        for e in entries:
+            assert set(e) == {"triplet", "score", "duration", "sub_traj", "obj_traj"}
+            assert 0.0 <= e["score"] <= 1.0
+
+    proc = _run_port_base(work, ["--config", "port_train_6.yaml", *args, "--train",
+                                 "--resume"])
+    assert "at iter 4" in proc.stdout + proc.stderr
+    resumed = load_checkpoint(str(models / "porttrain_weights_iter_6.pt"))
+    assert resumed["step"] == 6 and resumed["optimizer"] is not None
 
 
 def test_cli_refuses_unported_stages(capsys):
     from tspn_tpu_torch import base
 
-    assert base.main(["--train", "--config", "x.yaml"]) == 2
+    assert base.main(["--preprocess", "--config", "x.yaml"]) == 2
     assert "base.py" in capsys.readouterr().err
-    assert base.main(["--preprocess"]) == 2
-    with pytest.raises(SystemExit):
-        base.main(["--detect", "--data_dir", "d", "--dataset", "vidvrd"])
-    assert "--device" in capsys.readouterr().err
+    for stage in ("--train", "--detect"):
+        with pytest.raises(SystemExit):
+            base.main([stage, "--data_dir", "d", "--dataset", "vidvrd"])
+        assert "--device" in capsys.readouterr().err
     assert base.main([]) == 0
     assert "--detect" in capsys.readouterr().out
 
@@ -163,6 +259,9 @@ class Refuse(importlib.abc.MetaPathFinder):
         return None
 sys.meta_path.insert(0, Refuse())
 import tspn_tpu_torch.runtime.predict, tspn_tpu_torch.data.synthetic
+import tspn_tpu_torch.runtime.train, tspn_tpu_torch.solver.optim
+import tspn_tpu_torch.parallel.train_step, tspn_tpu_torch.models.tspn
+import tspn_tpu_torch.runtime.checkpoint, tspn_tpu_torch.base
 import tspn_tpu_torch
 for info in pkgutil.walk_packages(tspn_tpu_torch.__path__, "tspn_tpu_torch."):
     importlib.import_module(info.name)

@@ -1,0 +1,112 @@
+"""The fused_classify CUDA kernel on a card (marked gpu; each test skips
+without one).
+
+Imports only torch, numpy and tspn_tpu_torch, so it runs where h5py and
+flax are absent: ``python -m pytest tests/test_torch_fused_classify_gpu.py -q``.
+
+* The kernel agrees with its plain PyTorch version within
+  ``|kernel - plain| <= 1e-5 * (|N(x)| @ |W| + |b|) + 1e-6`` per element,
+  at ragged row counts, at both layouts (C 35 and C 80), at R = 132 and
+  at an R that takes two column tiles. The two sum in different orders
+  (the kernel in one f32 FMA chain per output, the plain version through
+  the cuBLAS f32 GEMM with TF32 off), so the bound is relative to the
+  magnitude of the summed terms.
+* The wrapper raises on bf16 and non-contiguous inputs and on a width
+  that does not fit the layout.
+* The training op's dW and db agree whether its forward is the kernel or
+  the plain version, and the kernel launches once per forward.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tspn_tpu_torch.data.layout import FeatureLayout
+from tspn_tpu_torch.ops import pairwise as tpw
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused_classify kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(layout, p, r, device, seed=3):
+    """Raw device-layout rows: a normal head, sparse non-negative BoW
+    counts, one row with a zero block, and five zero padding rows."""
+    rng = np.random.RandomState(seed)
+    d, hp = layout.device_dim, layout.dev_head_pad
+    x = np.zeros((p, d), np.float32)
+    x[:, : layout.dev_head_dim] = rng.randn(p, layout.dev_head_dim)
+    bow = rng.randint(0, 6, size=(p, d - hp)) * (rng.rand(p, d - hp) < 0.05)
+    x[:, hp:] = bow
+    for k in range(layout.num_bow_blocks):  # slot padding stays zero
+        lo = hp + k * layout.dev_block + layout.bow_block_size
+        x[:, lo : hp + (k + 1) * layout.dev_block] = 0
+    x[0, hp : hp + layout.dev_block] = 0
+    x[-5:] = 0
+    w = (rng.randn(d, r) * 0.01).astype(np.float32)
+    b = rng.randn(r).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (x, w, b)]
+
+
+def _bound(x, w, b, layout):
+    """1e-5 * (|N(x)| @ |W| + |b|) + 1e-6, in float64."""
+    xn = tpw._normalize_device_layout(x.double(), layout).abs()
+    return 1e-5 * (xn @ w.double().abs() + b.double().abs()) + 1e-6
+
+
+@pytest.mark.parametrize("c,r,p", [(35, 132, 1037), (80, 132, 777), (35, 12, 300),
+                                   (80, 300, 130)])
+def test_fused_kernel_within_bound(cuda_device, c, r, p):
+    layout = FeatureLayout.for_objects(c)
+    x, w, b = _inputs(layout, p, r, cuda_device)
+    before = tpw.LAUNCHES["fused_classify"]
+    out = tpw.normalize_classify_fused_forward(x, w, b, layout)
+    ref = tpw.normalize_classify_fused_plain(x, w, b, layout)
+    torch.cuda.synchronize()
+    assert tpw.LAUNCHES["fused_classify"] == before + 1
+    assert out.shape == (p, r) and torch.isfinite(out).all()
+    err = (out.double() - ref.double()).abs()
+    assert bool((err <= _bound(x, w, b, layout)).all()), float(err.max())
+    # zero padding rows score the bias alone
+    assert torch.equal(out[-5:], b.expand(5, r))
+
+
+def test_fused_kernel_rejects_bad_operands(cuda_device):
+    layout = FeatureLayout()
+    x, w, b = _inputs(layout, 64, 8, cuda_device)
+    with pytest.raises(NotImplementedError):
+        tpw.normalize_classify_fused_forward(x.bfloat16(), w, b, layout)
+    with pytest.raises(TypeError):
+        tpw.normalize_classify_fused_forward(x, w.bfloat16(), b, layout)
+    wide = torch.zeros((64, 2 * layout.device_dim), device=cuda_device)
+    wide[:, ::2] = x
+    with pytest.raises(ValueError):
+        tpw.normalize_classify_fused_forward(wide[:, ::2], w, b, layout)
+    with pytest.raises(ValueError):
+        tpw.normalize_classify_fused_forward(x, w, b, FeatureLayout.for_objects(80))
+    with pytest.raises(ValueError):
+        tpw.normalize_classify_fused_forward(x, w.cpu(), b, layout)
+
+
+def test_nofeatgrad_grads_kernel_vs_plain(cuda_device):
+    layout = FeatureLayout()
+    x, w, b = _inputs(layout, 400, 132, cuda_device)
+    g = torch.randn((400, 132), generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    grads = []
+    for plain in (False, True):
+        w_ = w.clone().requires_grad_(True)
+        b_ = b.clone().requires_grad_(True)
+        before = tpw.LAUNCHES["fused_classify"]
+        out = tpw.normalize_classify_fused_nofeatgrad(x, w_, b_, layout, plain)
+        (out * g).sum().backward()
+        assert tpw.LAUNCHES["fused_classify"] - before == (0 if plain else 1)
+        grads.append((w_.grad, b_.grad))
+    # the backward is the same plain code on the same inputs
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])

@@ -1,10 +1,13 @@
 """Command line of the PyTorch port: ``python -m tspn_tpu_torch.base``.
 
 Takes the flags of the JAX package's ``base.py`` plus ``--device``.
-``--detect`` runs segment-mode relation detection on the given device and
-writes ``<OUTPUT_DIR>/models/baseline_relation_prediction.json`` with the
-same contract. ``--preprocess`` and ``--train`` are not ported yet: run
-them with ``base.py``, whose checkpoints this command serves.
+``--train [--resume]`` trains the segment-mode relation model on the
+given device (unfused, or fused with ``MODEL.FUSED_CLASSIFIER``) and
+writes ``<name>_weights_iter_<N>.pt`` under ``<OUTPUT_DIR>/models``.
+``--detect`` runs segment-mode relation detection and writes
+``<OUTPUT_DIR>/models/baseline_relation_prediction.json`` with the same
+contract; it serves the port's checkpoints and those of ``base.py
+--train``. ``--preprocess`` is not ported yet: run it with ``base.py``.
 
 Config parsing, dataset readers, greedy association and logging are the
 JAX package's host code, imported inside the functions that use them;
@@ -67,6 +70,20 @@ def detect(cfg, args, data_dir) -> str:
     return out_path
 
 
+def training(cfg, args, data_dir):
+    from tspn_tpu.runtime.logging_utils import get_timestamp, setup_logger
+    from tspn_tpu_torch.runtime.train import train
+
+    if cfg.RELPN.USE_DPN:
+        raise NotImplementedError(
+            "span mode (RELPN.USE_DPN) is not ported yet (ROADMAP queue 1, "
+            "slice 2); run base.py --train"
+        )
+    basedata = _build_basedata(args.dataset, data_dir)
+    logger = setup_logger("train", "logs", 0, f"{get_timestamp()}_train.txt")
+    return train(cfg, basedata, args.device, resume=args.resume, logger=logger)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="VidVRD TSPN (PyTorch port)")
     parser.add_argument("--config", type=str, default="configs/baseline.yaml")
@@ -77,7 +94,7 @@ def main(argv=None) -> int:
     parser.add_argument("--detect", action="store_true", help="Detect video visual relation")
     parser.add_argument("--resume", action="store_true", help="Resume from latest checkpoint")
     parser.add_argument("--device", type=str, default=None,
-                        help="torch device for --detect, e.g. cuda or cpu")
+                        help="torch device for --train and --detect, e.g. cuda or cpu")
     parser.add_argument("--nodes", type=int, default=1)
     parser.add_argument("--ngpus_per_node", type=int, default=1)
     parser.add_argument("--local_rank", type=int, default=0)
@@ -86,15 +103,15 @@ def main(argv=None) -> int:
     if not (args.train or args.detect or args.preprocess):
         parser.print_help()
         return 0
-    if args.preprocess or args.train:
+    if args.preprocess:
         print(
-            "--preprocess and --train are not ported to PyTorch yet; run them "
-            "with base.py (the JAX package). --detect here serves its "
-            "checkpoints.", file=sys.stderr,
+            "--preprocess is not ported to PyTorch yet; run it with base.py "
+            "(the JAX package). --train and --detect here read its artifacts.",
+            file=sys.stderr,
         )
         return 2
     if args.device is None:
-        parser.error("--detect needs --device (cuda, cuda:N or cpu)")
+        parser.error("--train and --detect need --device (cuda, cuda:N or cpu)")
 
     # tspn_tpu's package init would otherwise probe jax for its XLA cache
     os.environ.setdefault("TSPN_NO_COMPILE_CACHE", "1")
@@ -104,7 +121,11 @@ def main(argv=None) -> int:
     cfg = get_default_config()
     cfg.merge_from_file(args.config)
     set_output_dir(cfg.ETC.OUTPUT_DIR)
-    detect(cfg, args, os.path.join(args.data_dir, args.dataset))
+    data_dir = os.path.join(args.data_dir, args.dataset)
+    if args.train:
+        training(cfg, args, data_dir)
+    if args.detect:
+        detect(cfg, args, data_dir)
     return 0
 
 

@@ -1,12 +1,16 @@
-"""Inference batching of segments into fixed-shape numpy buffers.
+"""Batching of segments into fixed-shape numpy buffers.
 
-Numpy copy of the JAX package's inference batching, without labels:
-``SegmentRecord`` (tspn_tpu/data/vrdataset.py:47-70), ``batch_buffers``
-and ``fill_padded`` (vrdataset.py:246-326) and the unshuffled bucket
-grouping of ``BucketedLoader`` (tspn_tpu/data/loader.py:35-151). Those
-modules import h5py at their top. ``tests/test_torch_predict.py`` holds
-this loader's batches equal, key by key, to
-``BucketedLoader(shuffle=False, include_labels=False)``.
+Numpy copy of the JAX package's batching: ``SegmentRecord``
+(tspn_tpu/data/vrdataset.py:47-70), ``batch_buffers`` and ``fill_padded``
+(vrdataset.py:246-326), and the bucket grouping of ``BucketedLoader``
+(tspn_tpu/data/loader.py:35-210) for both of its uses: one unshuffled
+pass for inference, and the training stream (epoch-seeded shuffle,
+``max_iter`` batches across epochs, ``skip_batches`` for resume, and the
+end-of-epoch flush padded by repetition). Those modules import h5py at
+their top. ``tests/test_torch_predict.py`` and
+``tests/test_torch_train.py`` hold this loader's batches equal, key by
+key, to the JAX BucketedLoader's. There is no prefetch thread: batches
+are assembled when the consumer asks for them.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ class SegmentRecord:
     feats: np.ndarray       # (P, D) f32 with L1-normalized BoW blocks, or
     #                         int8 rows when q8_scales is set
     pairs: np.ndarray       # (P, 2) int64 proposal tracklet indices
-    labels: Optional[np.ndarray]  # unused at inference
+    labels: Optional[np.ndarray]  # (P, num_predicates) f32 multi-hot; None
+    #                               at inference
     cls_logits: np.ndarray  # (N, num_objects) f32 per-tracklet classeme
     num_proposals: int      # N
     iou: np.ndarray         # (N+GT, N+GT) f32, passed through to the output
@@ -55,6 +60,7 @@ def batch_buffers(
     """Zeroed batch leaves (P_max = n_bucket * (n_bucket - 1)):
     feats (B, P_max, D), int8 for q8 and q8f records, else f32;
     pairs (B, P_max, 2) int32, padding points at tracklet 0;
+    labels (B, P_max, R) f32 when the template carries labels;
     pair_mask (B, P_max); cls_logits (B, n_bucket, C); track_mask
     (B, n_bucket); feat_scale (B, P_max, 16) for q8 and q8f records;
     trk_feats / trk_scales for q8f records."""
@@ -67,6 +73,10 @@ def batch_buffers(
         "cls_logits": np.zeros((batch_size, n_bucket, num_objects), np.float32),
         "track_mask": np.zeros((batch_size, n_bucket), np.float32),
     }
+    if template.labels is not None:
+        bufs["labels"] = np.zeros(
+            (batch_size, p_max, template.labels.shape[1]), np.float32
+        )
     if template.q8_scales is not None:
         bufs["feat_scale"] = np.zeros((batch_size, p_max, 16), np.float32)
     if template.trk_feats is not None:
@@ -84,17 +94,19 @@ def fill_padded(bufs: Dict[str, np.ndarray], b: int, record, n_bucket: int) -> N
     p_max = n_bucket * (n_bucket - 1)
     keep = (record.pairs[:, 0] < n) & (record.pairs[:, 1] < n)
     if keep.all():
-        feats_src, pairs_src, scales_src = (
-            record.feats, record.pairs, record.q8_scales
-        )
+        feats_src, pairs_src = record.feats, record.pairs
+        labels_src, scales_src = record.labels, record.q8_scales
     else:
         feats_src = record.feats[keep]
         pairs_src = record.pairs[keep]
+        labels_src = None if record.labels is None else record.labels[keep]
         scales_src = None if record.q8_scales is None else record.q8_scales[keep]
     p = min(feats_src.shape[0], p_max)
     bufs["feats"][b, :p] = feats_src[:p]
     bufs["pairs"][b, :p] = pairs_src[:p]
     bufs["pair_mask"][b, :p] = 1.0
+    if "labels" in bufs:
+        bufs["labels"][b, :p] = labels_src[:p]
     m = min(record.cls_logits.shape[0], n)
     bufs["cls_logits"][b, :m] = record.cls_logits[:m]
     bufs["track_mask"][b, :n] = 1.0
@@ -106,49 +118,87 @@ def fill_padded(bufs: Dict[str, np.ndarray], b: int, record, n_bucket: int) -> N
 
 
 class BucketedLoader:
-    """One pass over ``dataset`` in index order, grouped by tracklet
-    bucket; yields (bucket, batch, indices, records). A bucket's batch is
-    emitted when it fills; leftovers are flushed at the end, padded by
-    repeating their segments so every batch has ``batch_size`` rows.
+    """Segments grouped by tracklet bucket; yields (bucket, batch,
+    indices, records). A bucket's batch is emitted when it fills; at the
+    end of an epoch the leftovers are flushed, padded by repeating their
+    segments so every batch has ``batch_size`` rows.
+
+    With ``max_iter`` None it makes one pass in index order (inference).
+    Otherwise it yields batches ``skip_batches .. max_iter - 1`` of an
+    endless stream of epochs; with ``shuffle`` epoch e visits the
+    segments in ``RandomState(seed + e).permutation(n)`` order. Skipped
+    batches are drawn but not assembled, so a resumed run continues at
+    its checkpoint's position. ``include_labels`` loads each record's
+    multi-hot labels into a ``labels`` leaf.
 
     ``dataset`` needs ``__len__``, ``num_proposals_of(i)`` and
-    ``load_segment(i, with_labels=False)``.
+    ``load_segment(i, with_labels)``.
     """
 
     def __init__(
         self, dataset, buckets: Sequence[int], batch_size: int,
-        feature_dim: int, num_objects: int,
+        feature_dim: int, num_objects: int, *, max_iter: Optional[int] = None,
+        shuffle: bool = False, seed: int = 0, skip_batches: int = 0,
+        include_labels: bool = False,
     ):
         self.dataset = dataset
         self.buckets = sorted(buckets)
         self.batch_size = batch_size
         self.feature_dim = feature_dim
         self.num_objects = num_objects
+        self.max_iter = max_iter
+        self.shuffle = shuffle
+        self.seed = seed
+        self.skip_batches = int(skip_batches)
+        self.include_labels = include_labels
         self._bucket_of = [
             pick_bucket(dataset.num_proposals_of(i), self.buckets)
             for i in range(len(dataset))
         ]
 
     def __len__(self) -> int:
-        """Number of batches one pass yields."""
+        """Number of batches an iteration yields."""
+        if self.max_iter is not None:
+            return max(self.max_iter - self.skip_batches, 0)
         counts = np.bincount(self._bucket_of, minlength=max(self.buckets) + 1)
         return int(sum(-(-counts[b] // self.batch_size) for b in self.buckets))
 
+    def _epoch_order(self, epoch: int) -> np.ndarray:
+        n = len(self.dataset)
+        if self.shuffle:
+            return np.random.RandomState(self.seed + epoch).permutation(n)
+        return np.arange(n)
+
     def _groups(self) -> Iterator[Tuple[int, List[int]]]:
-        pending: Dict[int, List[int]] = {b: [] for b in self.buckets}
-        for i in range(len(self.dataset)):
-            b = self._bucket_of[i]
-            pending[b].append(i)
-            if len(pending[b]) == self.batch_size:
-                yield b, pending[b]
-                pending[b] = []
-        for b, idxs in pending.items():
-            if idxs:
-                yield b, (idxs * self.batch_size)[: self.batch_size]
+        """(bucket, indices) groups: one epoch, or endless with max_iter."""
+        epoch = 0
+        while True:
+            pending: Dict[int, List[int]] = {b: [] for b in self.buckets}
+            for i in self._epoch_order(epoch):
+                b = self._bucket_of[i]
+                pending[b].append(int(i))
+                if len(pending[b]) == self.batch_size:
+                    yield b, pending[b]
+                    pending[b] = []
+            for b, idxs in pending.items():
+                if idxs:
+                    yield b, (idxs * self.batch_size)[: self.batch_size]
+            epoch += 1
+            if self.max_iter is None:
+                return
 
     def __iter__(self):
-        for bucket, idxs in self._groups():
-            records = [self.dataset.load_segment(i, with_labels=False) for i in idxs]
+        groups = self._groups()
+        for _ in range(self.skip_batches):
+            if next(groups, None) is None:
+                return
+        for count, (bucket, idxs) in enumerate(groups, start=self.skip_batches):
+            if self.max_iter is not None and count >= self.max_iter:
+                return
+            records = [
+                self.dataset.load_segment(i, with_labels=self.include_labels)
+                for i in idxs
+            ]
             bufs = batch_buffers(
                 records[0], len(records), bucket, self.num_objects, self.feature_dim,
             )

@@ -1,23 +1,30 @@
-"""Seeded in-memory segments at full VidVRD width, for serving without data.
+"""Seeded in-memory segments at full VidVRD width, for serving and
+training without data.
 
 Per segment of N tracklets, with the statistics of the JAX package's
 synthetic artifacts (tspn_tpu/data/synthetic.py):
 
 * classeme logits: normal(0, 0.3) per category, +6 at the tracklet's own;
-* motion BoW: sparse non-negative, each of the 4 x 1000 per-tracklet bins
-  set with probability 0.002, each block then L1-normalized (as the
-  dataset normalizes before quantization);
+* motion BoW: sparse counts, each of the 4 x 1000 per-tracklet bins set
+  to 1 with probability 0.002;
 * relative rows: normal(0, 0.05), with 3.0 at the predicate slot of a
-  few related pairs.
+  few related pairs, whose multi-hot labels (P, R) mark that predicate.
 
-Pairs are all ordered (i, j), i != j, subject-major. The rows are
-quantized through ops/pairwise's prep helpers into q8f records
-(per-tracklet descriptors + per-pair relative rows) or q8 records
-(expanded device-layout rows).
+Pairs are all ordered (i, j), i != j, subject-major. A set is made in
+one of four modes:
+
+* "q8f": factored int8 records (per-tracklet descriptors + per-pair
+  relative rows), the BoW blocks L1-normalized before quantization;
+* "q8": expanded int8 device-layout rows, likewise;
+* "f32": storage-layout f32 rows with host-normalized BoW blocks (what
+  the unfused model reads), with labels;
+* "f32dev": the same rows RAW in the device layout (what the fused
+  model reads; its kernel normalizes), with labels.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List
 
 import numpy as np
@@ -33,15 +40,18 @@ def ordered_pairs(n: int) -> np.ndarray:
     return np.stack([sub, obj], axis=1).astype(np.int64)
 
 
+MODES = ("q8f", "q8", "f32", "f32dev")
+
+
 class InMemorySegments:
     """Dataset view over a list of SegmentRecords (the loader's contract);
-    ``mode`` is the records' kind: "q8f", "q8" or "f32"."""
+    ``mode`` is the records' kind, one of MODES."""
 
     def __init__(self, records: List[SegmentRecord], mode: str):
-        if mode not in ("q8f", "q8", "f32"):
+        if mode not in MODES:
             raise ValueError(f"unknown segment mode {mode!r}")
         self.records = records
-        self.quantized = mode != "f32"
+        self.quantized = mode in ("q8f", "q8")
         self.factored = mode == "q8f"
         self.index = [r.index for r in records]
 
@@ -51,8 +61,11 @@ class InMemorySegments:
     def num_proposals_of(self, i: int) -> int:
         return self.records[i].num_proposals
 
-    def load_segment(self, i: int, with_labels: bool = False) -> SegmentRecord:
-        return self.records[i]
+    def load_segment(self, i: int, with_labels: bool = True) -> SegmentRecord:
+        record = self.records[i]
+        if not with_labels and record.labels is not None:
+            return dataclasses.replace(record, labels=None)
+        return record
 
     def feature_width(self) -> int:
         return int(self.records[0].feats.shape[1])
@@ -70,7 +83,7 @@ def synthetic_segments(
     relations_per_segment: int = 4,
 ) -> InMemorySegments:
     """``num_segments`` segments of 2..max_tracklets tracklets, at least
-    half of them at max_tracklets, as q8f or q8 records."""
+    half of them at max_tracklets, as records of ``mode`` (see MODES)."""
     rng = np.random.RandomState(seed)
     layout = FeatureLayout.for_objects(num_objects)
     c, bs = layout.classeme_dim, layout.bow_block_size
@@ -88,10 +101,13 @@ def synthetic_segments(
         cats = rng.randint(num_objects, size=n)
         cls = rng.normal(0, 0.3, size=(n, c)).astype(np.float32)
         cls[np.arange(n), cats] += 6.0
-        bow = _l1_blocks((rng.rand(n, half) < 0.002).astype(np.float32), bs)
+        raw = (rng.rand(n, half) < 0.002).astype(np.float32)
+        bow = raw if mode == "f32dev" else _l1_blocks(raw, bs)
         rel = rng.normal(0, 0.05, size=(pairs.shape[0], layout.rel_dim)).astype(np.float32)
         hot = rng.randint(pairs.shape[0], size=relations_per_segment)
-        rel[hot, rng.randint(num_predicates, size=relations_per_segment)] = 3.0
+        preds = rng.randint(num_predicates, size=relations_per_segment)
+        rel[hot, preds] = 3.0
+        labels = scales = trk_q = trk_s = None
         if mode == "q8f":
             trk_q, trk_s = pw.factor_tracklet_features_q8(cls, bow, layout)
             feats, scales = pw.factor_rel_features_q8(rel, layout)
@@ -100,12 +116,16 @@ def synthetic_segments(
                 [cls[pairs[:, 0]], cls[pairs[:, 1]], bow[pairs[:, 0]],
                  bow[pairs[:, 1]], rel], axis=1,
             )
-            feats, head_scale = pw.to_device_layout_q8(rows, layout)
-            scales = pw.precompute_q8_scales(feats, head_scale, layout)
-            trk_q = trk_s = None
+            if mode == "q8":
+                feats, head_scale = pw.to_device_layout_q8(rows, layout)
+                scales = pw.precompute_q8_scales(feats, head_scale, layout)
+            else:
+                feats = pw.to_device_layout(rows, layout) if mode == "f32dev" else rows
+                labels = np.zeros((pairs.shape[0], num_predicates), np.float32)
+                labels[hot, preds] = 1.0
         records.append(SegmentRecord(
             index=(f"SYN_{seed:02d}_{k:05d}", 0, 30),
-            feats=feats, pairs=pairs, labels=None, cls_logits=cls,
+            feats=feats, pairs=pairs, labels=labels, cls_logits=cls,
             num_proposals=n, iou=np.eye(n, dtype=np.float32),
             trackid=np.full(n, -1, np.int64), q8_scales=scales,
             trk_feats=trk_q, trk_scales=trk_s,

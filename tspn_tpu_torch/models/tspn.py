@@ -1,9 +1,20 @@
 """Segment-level relation model (counterpart of tspn_tpu/models/tspn.py).
 
-The classifier is Linear(FEATURE_DIM -> PREDICATE_NUM) over pair
-features whose BoW blocks the host has already L1-normalized, with
-normal(0.01) weight init and zero bias. Only the unfused classifier with
-PPN off is ported; the PPN head and the fused classifier raise.
+The classifier is Linear(FEATURE_DIM -> PREDICATE_NUM) with normal(0.01)
+weight init and zero bias, in one of two forms:
+
+* unfused: ``nn.Linear`` over pair features whose BoW blocks the host
+  has already L1-normalized;
+* fused (``MODEL.FUSED_CLASSIFIER``): parameters ``kernel``
+  (device_dim, R) and ``bias`` over RAW device-layout rows, with the
+  normalization done in the fused_classify kernel. An inference model
+  runs the kernel's forward alone; a training model runs
+  ``normalize_classify_fused_nofeatgrad``, whose backward gives dW and
+  db only. CONTRACT: the feature cotangent is a structural zero, so a
+  learned module inserted upstream of the classifier would train with
+  zero gradient; use ``normalize_classify_fused`` then.
+
+The PPN head raises.
 """
 
 from __future__ import annotations
@@ -13,30 +24,51 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from tspn_tpu_torch.data.layout import FeatureLayout
+from tspn_tpu_torch.ops import pairwise as pw
+
 _PPN_TODO = "the PPN head is not ported yet (ROADMAP queue 1, item 3)"
-_FUSED_TODO = (
-    "the fused classifier is not ported yet (ROADMAP queue 2, K3 "
-    "normalize_classify_pallas)"
-)
 
 
 class RelationPredictor(nn.Module):
-    """Per-pair predicate scorer; returns logits."""
+    """Per-pair predicate scorer; returns logits. ``forward(feats,
+    plain=True)`` runs the fused kernel's plain version on any device."""
 
     def __init__(
         self, num_predicates: int, feature_dim: int, fused: bool = False,
-        device=None, generator: Optional[torch.Generator] = None,
+        inference: bool = False, num_objects: int = 35, device=None,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if fused:
-            raise NotImplementedError(_FUSED_TODO)
-        self.rel_predictor = nn.Linear(feature_dim, num_predicates, device=device)
+        self.fused = fused
+        self.inference = inference
+        if not fused:
+            self.rel_predictor = nn.Linear(feature_dim, num_predicates, device=device)
+            with torch.no_grad():
+                self.rel_predictor.weight.normal_(0.0, 0.01, generator=generator)
+                self.rel_predictor.bias.zero_()
+            return
+        self.layout = FeatureLayout.for_objects(num_objects)
+        self.kernel = nn.Parameter(
+            torch.empty((self.layout.device_dim, num_predicates), device=device)
+        )
+        self.bias = nn.Parameter(torch.zeros(num_predicates, device=device))
         with torch.no_grad():
-            self.rel_predictor.weight.normal_(0.0, 0.01, generator=generator)
-            self.rel_predictor.bias.zero_()
+            self.kernel.normal_(0.0, 0.01, generator=generator)
 
-    def forward(self, feats: torch.Tensor) -> torch.Tensor:
-        return self.rel_predictor(feats)
+    def forward(self, feats: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        if not self.fused:
+            return self.rel_predictor(feats)
+        flat = feats.reshape(-1, self.layout.device_dim)
+        if self.inference:
+            out = pw.normalize_classify_fused_forward(
+                flat, self.kernel, self.bias, self.layout, plain
+            )
+        else:
+            out = pw.normalize_classify_fused_nofeatgrad(
+                flat, self.kernel, self.bias, self.layout, plain
+            )
+        return out.reshape(*feats.shape[:-1], out.shape[-1])
 
 
 class TSPNModel(nn.Module):
@@ -45,7 +77,8 @@ class TSPNModel(nn.Module):
 
     def __init__(
         self, num_predicates: int = 132, feature_dim: int = 11070,
-        use_ppn: bool = False, fused_classifier: bool = False, device=None,
+        use_ppn: bool = False, fused_classifier: bool = False,
+        inference: bool = False, num_objects: int = 35, device=None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -53,22 +86,28 @@ class TSPNModel(nn.Module):
             raise NotImplementedError(_PPN_TODO)
         self.classifier = RelationPredictor(
             num_predicates, feature_dim, fused=fused_classifier,
-            device=device, generator=generator,
+            inference=inference, num_objects=num_objects, device=device,
+            generator=generator,
         )
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return {"rel_logits": self.classifier(batch["feats"])}
+    def forward(self, batch: Dict[str, torch.Tensor],
+                plain: bool = False) -> Dict[str, torch.Tensor]:
+        return {"rel_logits": self.classifier(batch["feats"], plain=plain)}
 
 
 def build_model(
     num_predicates: int = 132, feature_dim: int = 11070, use_ppn: bool = False,
-    fused_classifier: bool = False, device=None, seed: Optional[int] = None,
+    fused_classifier: bool = False, inference: bool = False,
+    num_objects: int = 35, device=None, seed: Optional[int] = None,
 ) -> TSPNModel:
-    """TSPNModel from explicit widths; ``seed`` makes the init reproducible."""
+    """TSPNModel from explicit widths; ``seed`` makes the init
+    reproducible. The fused classifier's width is the device layout of
+    ``num_objects`` classeme categories (``feature_dim`` is then unused)."""
     gen = None
     if seed is not None:
         gen = torch.Generator(device=device or "cpu").manual_seed(seed)
     return TSPNModel(
         num_predicates=num_predicates, feature_dim=feature_dim, use_ppn=use_ppn,
-        fused_classifier=fused_classifier, device=device, generator=gen,
+        fused_classifier=fused_classifier, inference=inference,
+        num_objects=num_objects, device=device, generator=gen,
     )

@@ -66,13 +66,25 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def q8s_library() -> ctypes.CDLL:
-    lib = library("q8s")
-    fn = lib.tspn_q8s_launch
+def _bound(name: str, entry: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
+    """``library(name)`` with ``entry(n_ptrs pointers, n_ints ints,
+    stream) -> cudaError_t`` typed for ctypes."""
+    lib = library(name)
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = (
+            [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        )
         fn.restype = ctypes.c_int
     return lib
+
+
+def q8s_library() -> ctypes.CDLL:
+    return _bound("q8s", "tspn_q8s_launch", 6, 5)
+
+
+def fused_classify_library() -> ctypes.CDLL:
+    return _bound("fused_classify", "tspn_fused_classify_launch", 4, 5)
 
 
 def check(err: int, what: str) -> None:

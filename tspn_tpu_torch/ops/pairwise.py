@@ -7,10 +7,14 @@ Counterpart of ``tspn_tpu/ops/pairwise.py``. Two halves:
   bit-exact against its original by ``tests/test_torch_pairwise.py``.
   The 128-lane padding of the JAX package's ``*_fused``/``*_pad`` weight
   keys is a TPU workaround and is not carried over.
-* The scorers in PyTorch. ``normalize_classify_q8s`` is the int8 x int8
-  segmented scorer: on a CUDA tensor it launches the hand-written kernel
-  in ``csrc/q8s.cu`` (or raises), on a CPU tensor it runs
-  ``normalize_classify_q8s_plain``, which is also the kernel's oracle.
+* The scorers in PyTorch. Two dispatchers front hand-written kernels:
+  on a CUDA tensor they launch the kernel (or raise), on a CPU tensor
+  they run the kernel's plain version, which is also its oracle.
+  ``normalize_classify_q8s`` is the int8 x int8 segmented scorer
+  (``csrc/q8s.cu``); ``normalize_classify_fused_forward`` is the f32
+  fused L1 normalization + classifier over device-layout rows
+  (``csrc/fused_classify.cu``), and ``normalize_classify_fused`` /
+  ``normalize_classify_fused_nofeatgrad`` wrap it in autograd.
 """
 
 from __future__ import annotations
@@ -24,8 +28,8 @@ import torch
 
 from tspn_tpu_torch.data.layout import DEFAULT_LAYOUT, FeatureLayout, round_up
 
-# kernel launches made by normalize_classify_q8s on CUDA tensors
-LAUNCHES = {"q8s": 0}
+# kernel launches made by the dispatchers on CUDA tensors
+LAUNCHES = {"q8s": 0, "fused_classify": 0}
 
 
 def reset_launches() -> None:
@@ -70,6 +74,16 @@ def weights_to_device_layout(w: np.ndarray, layout: FeatureLayout = None) -> np.
     valid = perm >= 0
     out[valid] = np.asarray(w)[perm[valid]]
     return out
+
+
+def weights_from_device_layout(w_dev: np.ndarray, layout: FeatureLayout) -> np.ndarray:
+    """(device_dim, R) -> (dim, R), the inverse of weights_to_device_layout
+    (pad rows are dropped)."""
+    perm = _permutation(layout)
+    valid = perm >= 0
+    w = np.zeros((layout.dim, w_dev.shape[1]), np.float32)
+    w[perm[valid]] = np.asarray(w_dev)[valid]
+    return w
 
 
 def to_device_layout_q8(feats: np.ndarray, layout: FeatureLayout = None) -> tuple:
@@ -291,6 +305,182 @@ def normalize_classify(
     )
     xn = torch.cat([head, bow_n, feats[..., layout.rel_start :]], dim=-1)
     return xn @ w + b
+
+
+def _normalize_device_layout(
+    feats_dev: torch.Tensor, layout: FeatureLayout = DEFAULT_LAYOUT
+) -> torch.Tensor:
+    """L1-normalize the BoW slots of device-layout rows (..., device_dim)
+    by division, as the JAX package's XLA path does."""
+    lead = feats_dev.shape[:-1]
+    hp = layout.dev_head_pad
+    bow = feats_dev[..., hp:].reshape(*lead, layout.num_bow_blocks, layout.dev_block)
+    denom = bow.abs().sum(dim=-1, keepdim=True)
+    bow_n = (bow / torch.where(denom > 0, denom, torch.ones_like(denom))).reshape(
+        *lead, layout.num_bow_blocks * layout.dev_block
+    )
+    return torch.cat([feats_dev[..., :hp], bow_n], dim=-1)
+
+
+def normalize_classify_device(
+    feats_dev: torch.Tensor, w_dev: torch.Tensor, b: torch.Tensor,
+    layout: FeatureLayout = DEFAULT_LAYOUT,
+) -> torch.Tensor:
+    """Device-layout rows (..., device_dim) -> (..., R): L1-normalize the
+    BoW slots (a zero block stays zero), then ``@ w_dev + b``."""
+    return _normalize_device_layout(feats_dev, layout) @ w_dev + b
+
+
+def normalize_classify_fused_plain(
+    x: torch.Tensor, w_dev: torch.Tensor, b: torch.Tensor,
+    layout: FeatureLayout = DEFAULT_LAYOUT,
+) -> torch.Tensor:
+    """Plain version of the fused_classify kernel, (P, D) f32 -> (P, R) f32.
+
+    As the kernel does: each BoW block's L1 sum s is taken in f32 and the
+    block is multiplied by ``s > 0 ? 1/s : 1`` (a reciprocal multiply,
+    not a division); the head slab passes through; then ``@ w_dev + b``
+    in f32. The kernel sums in another order, so it agrees with this
+    within a tolerance, not bit for bit. On a card, run it with
+    ``torch.backends.cuda.matmul.allow_tf32 = False``.
+    """
+    p = x.shape[0]
+    hp, nb, blk = layout.dev_head_pad, layout.num_bow_blocks, layout.dev_block
+    bow = x[:, hp:].reshape(p, nb, blk)
+    s = bow.abs().sum(dim=-1, keepdim=True)
+    scale = torch.where(s > 0, 1.0 / s, torch.ones_like(s))
+    xn = torch.cat([x[:, :hp], (bow * scale).reshape(p, nb * blk)], dim=1)
+    return xn @ w_dev + b
+
+
+def _fused_classify_cuda(x, w_dev, b, layout) -> torch.Tensor:
+    from tspn_tpu_torch.ops import _cuda
+
+    p, d = x.shape
+    r = w_dev.shape[1]
+    hp, blk = layout.dev_head_pad, layout.dev_block
+    tensors = (x, w_dev, b)
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("fused_classify: all operands must be on one device")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("fused_classify: x, w_dev and b must be float32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("fused_classify: operands must be contiguous")
+    if w_dev.shape != (d, r) or b.shape != (r,):
+        raise ValueError(
+            f"fused_classify: bad shapes x {tuple(x.shape)} "
+            f"w_dev {tuple(w_dev.shape)} b {tuple(b.shape)}"
+        )
+    if (d != layout.device_dim or hp % 32 or blk % 32
+            or layout.num_bow_blocks > 15):
+        raise ValueError(f"fused_classify: layout {layout} does not fit width {d}")
+    if x.data_ptr() % 16:
+        raise ValueError("fused_classify: x must be 16-byte aligned")
+    out = torch.empty((p, r), dtype=torch.float32, device=x.device)
+    if p == 0:
+        return out
+    lib = _cuda.fused_classify_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.tspn_fused_classify_launch(
+            x.data_ptr(), w_dev.data_ptr(), b.data_ptr(), out.data_ptr(),
+            p, r, d, hp, blk, ctypes.c_void_p(stream),
+        )
+    _cuda.check(err, "tspn_fused_classify_launch")
+    LAUNCHES["fused_classify"] += 1
+    return out
+
+
+def normalize_classify_fused_forward(
+    x: torch.Tensor, w_dev: torch.Tensor, b: torch.Tensor,
+    layout: FeatureLayout = DEFAULT_LAYOUT, plain: bool = False,
+) -> torch.Tensor:
+    """Fused normalize + classify, (P, device_dim) f32 -> (P, R) f32: the
+    kernel on a CUDA tensor, the plain version on a CPU tensor (or with
+    ``plain=True``, on any device)."""
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"fused classifier in {x.dtype}: only float32 is ported (bf16 "
+            "training is queued, ROADMAP queue 1)"
+        )
+    if plain or x.device.type == "cpu":
+        return normalize_classify_fused_plain(x, w_dev, b, layout)
+    if x.device.type == "cuda":
+        return _fused_classify_cuda(x, w_dev, b, layout)
+    raise ValueError(f"fused_classify: no implementation for device {x.device}")
+
+
+class _FusedClassify(torch.autograd.Function):
+    """The kernel's forward with the general backward of
+    ``tspn_tpu/ops/pairwise.py::_fused_for_layout`` (plain PyTorch, as the
+    JAX package's VJP is XLA). For a block x_b with s = sum|x_b| > 0 and
+    u = g @ W^T: d x_b = u/s - sign(x_b) <u, x_b> / s^2; the head passes
+    u through."""
+
+    @staticmethod
+    def forward(ctx, x, w_dev, b, layout, plain):
+        ctx.layout = layout
+        ctx.save_for_backward(x, w_dev)
+        return normalize_classify_fused_forward(x, w_dev, b, layout, plain)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        layout = ctx.layout
+        g = g.float()
+        dw = _normalize_device_layout(x.float(), layout).T @ g
+        db = g.sum(dim=0)
+        u = g @ w.float().T
+        p = x.shape[0]
+        hp, nb, blk = layout.dev_head_pad, layout.num_bow_blocks, layout.dev_block
+        xb = x[:, hp:].float().reshape(p, nb, blk)
+        ub = u[:, hp:].reshape(p, nb, blk)
+        s = xb.abs().sum(dim=-1, keepdim=True)
+        safe = s > 0
+        s1 = torch.where(safe, s, torch.ones_like(s))
+        inner = (ub * xb).sum(dim=-1, keepdim=True)
+        dxb = torch.where(safe, ub / s1 - torch.sign(xb) * inner / (s1 * s1), ub)
+        dx = torch.cat([u[:, :hp], dxb.reshape(p, nb * blk)], dim=1).to(x.dtype)
+        return dx, dw.to(w.dtype), db, None, None
+
+
+class _FusedClassifyNoFeatGrad(torch.autograd.Function):
+    """The kernel's forward with the backward of
+    ``_fused_nofeatgrad_for_layout``: dW = N(x)^T g and db = sum g only.
+    The pair features are data-pipeline inputs, so their cotangent is a
+    structural zero (returned as zeros only if x asks for a gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, w_dev, b, layout, plain):
+        ctx.layout = layout
+        ctx.save_for_backward(x)
+        ctx.w_dtype = w_dev.dtype
+        return normalize_classify_fused_forward(x, w_dev, b, layout, plain)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        g = g.float()
+        dw = _normalize_device_layout(x.float(), ctx.layout).T @ g
+        db = g.sum(dim=0)
+        dx = torch.zeros_like(x) if ctx.needs_input_grad[0] else None
+        return dx, dw.to(ctx.w_dtype), db, None, None
+
+
+def normalize_classify_fused(
+    x: torch.Tensor, w_dev: torch.Tensor, b: torch.Tensor,
+    layout: FeatureLayout = DEFAULT_LAYOUT, plain: bool = False,
+) -> torch.Tensor:
+    """Differentiable fused op, (P, device_dim) -> (P, R), general backward."""
+    return _FusedClassify.apply(x, w_dev, b, layout, plain)
+
+
+def normalize_classify_fused_nofeatgrad(
+    x: torch.Tensor, w_dev: torch.Tensor, b: torch.Tensor,
+    layout: FeatureLayout = DEFAULT_LAYOUT, plain: bool = False,
+) -> torch.Tensor:
+    """Fused op whose backward gives only dW and db (the training path)."""
+    return _FusedClassifyNoFeatGrad.apply(x, w_dev, b, layout, plain)
 
 
 def normalize_classify_q8s_plain(

@@ -72,12 +72,18 @@ def load_jax_checkpoint(path: str) -> dict:
 def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     """Map the JAX model's param tree (numpy leaves) to TSPNModel's
     state dict. flax Dense keeps its kernel as (in, out); nn.Linear keeps
-    (out, in), so the kernel is transposed."""
+    (out, in), so the kernel is transposed. The fused classifier's
+    ``kernel`` (device_dim, R) and ``bias`` carry over as they are."""
     if "ppn_head" in params:
         raise NotImplementedError("PPN head weights: ROADMAP queue 1, item 3")
     cls = params["classifier"]
     if "rel_predictor" not in cls:
-        raise NotImplementedError("fused classifier weights: ROADMAP queue 2, K3")
+        return {
+            "classifier.kernel": torch.from_numpy(
+                np.array(cls["kernel"], np.float32)
+            ),
+            "classifier.bias": torch.from_numpy(np.array(cls["bias"], np.float32)),
+        }
     dense = cls["rel_predictor"]
     kernel = np.asarray(dense["kernel"], np.float32)
     return {
@@ -91,24 +97,55 @@ def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
 
 
 def save_checkpoint(path: str, model: torch.nn.Module, step: int = 0,
-                    loss: float = 0.0) -> str:
+                    loss: float = 0.0, optimizer=None, scheduler=None,
+                    plateau=None) -> str:
+    """torch.save of the model and, for a training checkpoint, the
+    optimizer, the LR scheduler and the plateau state (a
+    ``ReduceOnPlateauState``), written atomically."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    blob = {"model": model.state_dict(), "step": step, "loss": loss}
+    if optimizer is not None:
+        blob["optimizer"] = optimizer.state_dict()
+    if scheduler is not None:
+        blob["scheduler"] = scheduler.state_dict()
+    if plateau is not None:
+        blob["plateau"] = plateau._asdict()
     tmp = path + ".tmp"
-    torch.save({"model": model.state_dict(), "step": step, "loss": loss}, tmp)
+    torch.save(blob, tmp)
     os.replace(tmp, path)
     return path
 
 
 def load_checkpoint(path: str) -> dict:
     """Either format -> {state_dict, step, loss}: a torch.save zip file,
-    or a JAX flax msgpack checkpoint carried across."""
+    or a JAX flax msgpack checkpoint carried across. A native training
+    checkpoint also gives ``optimizer``, ``scheduler`` and ``plateau``
+    (None where it has none)."""
     if zipfile.is_zipfile(path):
         blob = torch.load(path, map_location="cpu", weights_only=True)
         return {"state_dict": blob["model"], "step": int(blob["step"]),
-                "loss": float(blob["loss"])}
+                "loss": float(blob["loss"]), "native": True,
+                "optimizer": blob.get("optimizer"),
+                "scheduler": blob.get("scheduler"),
+                "plateau": blob.get("plateau")}
     raw = load_jax_checkpoint(path)
     return {"state_dict": state_dict_from_jax(raw["params"]),
-            "step": raw["step"], "loss": raw["loss"]}
+            "step": raw["step"], "loss": raw["loss"], "native": False}
+
+
+def load_training_checkpoint(path: str) -> dict:
+    """``load_checkpoint`` for ``--resume``: only the port's own training
+    checkpoints hold the optimizer state it continues from."""
+    restored = load_checkpoint(path)
+    if not restored["native"]:
+        raise NotImplementedError(
+            f"{path} is a JAX checkpoint: its optax state is not carried "
+            "across, so --resume takes only the port's own checkpoints "
+            "(ROADMAP queue 3)"
+        )
+    if restored["optimizer"] is None:
+        raise ValueError(f"{path} holds no optimizer state to resume from")
+    return restored
 
 
 def latest_checkpoint(model_dir: str, model_name: str) -> Optional[str]:

@@ -10,7 +10,9 @@ by the dataset:
 * q8f (factored int8 store): ``factored_classify_q8_batched``, two q8s
   kernel launches per batch;
 * q8 (expanded int8 rows): one q8s kernel launch per batch;
-* f32 (per-file or f32 store): the model's nn.Linear.
+* f32 (per-file or f32 store): the model itself, its nn.Linear or, for
+  a fused-classifier model built with ``inference=True``, one launch of
+  the fused_classify kernel per batch over raw device-layout rows.
 
 The readback is synchronous: each batch is scored and read back before
 the next is assembled.
@@ -62,8 +64,16 @@ def select_topk(
 
 
 def classifier_weights(model) -> Tuple[np.ndarray, np.ndarray]:
-    """(W (dim, R), b (R,)) float32 numpy from the model's nn.Linear."""
-    lin = model.classifier.rel_predictor
+    """(W (dim, R), b (R,)) float32 numpy in the storage layout, from the
+    model's nn.Linear or, for a fused classifier, from its device-layout
+    kernel through the inverse permutation; so the int8 scorers serve a
+    model trained either way."""
+    cls = model.classifier
+    if cls.fused:
+        w_dev = cls.kernel.detach().to("cpu", torch.float32).numpy()
+        b = cls.bias.detach().to("cpu", torch.float32).numpy()
+        return pw.weights_from_device_layout(w_dev, cls.layout), b.copy()
+    lin = cls.rel_predictor
     w = lin.weight.detach().to("cpu", torch.float32).numpy().T
     b = lin.bias.detach().to("cpu", torch.float32).numpy()
     return np.ascontiguousarray(w), b.copy()
@@ -128,9 +138,9 @@ def make_q8_scorer(weights: dict, q8s=pw.normalize_classify_q8s) -> Callable:
     return score
 
 
-def make_f32_scorer(model) -> Callable:
+def make_f32_scorer(model, plain: bool = False) -> Callable:
     def score(batch):
-        return model(batch)["rel_logits"]
+        return model(batch, plain=plain)["rel_logits"]
 
     return score
 
@@ -159,7 +169,7 @@ def build_infer(model, mode: str, layout: FeatureLayout, topk_per_pair: int,
     device = torch.device(device)
     q8s = pw.normalize_classify_q8s_plain if plain else pw.normalize_classify_q8s
     if mode == "f32":
-        score = make_f32_scorer(model)
+        score = make_f32_scorer(model, plain)
     else:
         w, b = classifier_weights(model)
         if mode == "q8f":
@@ -251,13 +261,12 @@ def predict(cfg, basedata, device, logger=None):
     readers (imported here, not at module import: they need h5py) and
     scores it on ``device``."""
     from tspn_tpu.data.segments import get_model_path
+    from tspn_tpu.data.vrdataset import effective_feature_dim
     from tspn_tpu_torch.models.tspn import build_model
     from tspn_tpu_torch.runtime.checkpoint import load_checkpoint
 
     if cfg.RELPN.USE_PPN:
         raise NotImplementedError("PPN: ROADMAP queue 1, item 3")
-    if cfg.MODEL.get("FUSED_CLASSIFIER", False):
-        raise NotImplementedError("fused classifier: ROADMAP queue 2, K3")
     phase = basedata.infer_test_split()
     mode = str(cfg.PREDICT.get("CONSOLIDATED", "") or "")
     if mode:
@@ -284,9 +293,11 @@ def predict(cfg, basedata, device, logger=None):
     if len(dataset) == 0:
         raise ValueError("no test segments with cached features found")
 
+    fused = bool(cfg.MODEL.get("FUSED_CLASSIFIER", False))
     model = build_model(
         num_predicates=cfg.PREDICT.PREDICATE_NUM,
-        feature_dim=cfg.PREDICT.FEATURE_DIM,
+        feature_dim=cfg.PREDICT.FEATURE_DIM, fused_classifier=fused,
+        inference=True, num_objects=cfg.PREDICT.OBJECT_NUM,
     )
     ckpt = os.path.join(get_model_path(), cfg.ETC.MODEL_DUMP_FILE)
     restored = load_checkpoint(ckpt)
@@ -302,6 +313,6 @@ def predict(cfg, basedata, device, logger=None):
         topk_per_pair=cfg.PREDICT.TOPK_PER_PAIR,
         topk_per_seg=cfg.PREDICT.TOPK_PER_SEG,
         num_objects=cfg.PREDICT.OBJECT_NUM,
-        feature_dim=None if mode else cfg.PREDICT.FEATURE_DIM,
+        feature_dim=None if mode else effective_feature_dim(cfg),
         logger=logger,
     )
