@@ -5,47 +5,62 @@
 Phases, in order; any failure raises and the exit code is nonzero:
 
 1. report the card (nvidia-smi name and power limit) and versions;
-2. build both kernels from their sources with nvcc, the two builds run
-   side by side (a fresh checkout always builds; a second run loads the
-   builds), and report the q8s build (tspn_tpu_torch/csrc/q8s.cu);
+2. build the three kernels from their sources with nvcc, one build per
+   source, all side by side (a fresh checkout always builds; a second run
+   loads the builds), and report the q8s build (tspn_tpu_torch/csrc/q8s.cu);
 3. hold the q8s kernel against its plain PyTorch version at the three
    geometries of the serve path (tracklet, rel, expanded), with ragged
    row counts: the results must be equal bit for bit (torch.equal);
-   time both with CUDA events (median of 20 after 3 warm-ups);
-4. serve q8f: 96 synthetic full-width VidVRD segments (C 35, R 132),
+   time both with CUDA events (``cuda_median_ms``: 3 warm-ups, then the
+   median of 5 runs of 20 queued calls);
+4. report the q8f_fused build (csrc/q8f_fused.cu) and hold it against its
+   plain version bit for bit at four geometries: the serve geometry (16 x
+   992 rows, N 32), a ragged row count, the PPN-pruned geometry (16 x 256
+   rows with non-canonical pairs) and pairs with out-of-range indices;
+   time both;
+5. serve q8f: 96 synthetic full-width VidVRD segments (C 35, R 132),
    buckets [8, 16, 24, 32], batch 16, top-k 20/200, weights from a seeded
    normal(0.01) init carried across with state_dict_from_jax; run
-   predict_segments on the GPU with the kernel and with the plain
+   predict_segments on the GPU with the kernels and with the plain
    versions, in turns (plain, kernel, kernel, plain) after one untimed
-   run of each; the kernel must launch twice per batch and the top-k
-   selections must be equal; one more kernel run under torch.profiler
-   gives the device's busy share;
-5. serve q8: the same over expanded int8 rows, one launch per batch;
-6. report the build of the fused_classify kernel
+   run of each; each batch must launch q8s once (tracklet pass) and
+   q8f_fused once (rel pass), and the top-k selections must be equal;
+   one more kernel run under torch.profiler gives the device's busy share;
+6. serve q8: the same over expanded int8 rows, one q8s launch per batch;
+7. report the build of the fused_classify kernel
    (tspn_tpu_torch/csrc/fused_classify.cu);
-7. hold the fused_classify kernel against its plain version (TF32 off)
+8. hold the fused_classify kernel against its plain version (TF32 off)
    at the training geometry (P 7936, D 11264, R 132), at a ragged P
    (7923) and at the fused serve geometry (16 x 992 rows), each with zero
    padding rows and a zero BoW block, within
    |kernel - plain| <= 1e-5 * (|N(x)| @ |W| + |b|) + 1e-6 per element;
    time both with CUDA events;
-8. serve fused f32: 48 synthetic segments (half at 32 tracklets) RAW in
+9. serve fused f32: 48 synthetic segments (half at 32 tracklets) RAW in
    the device layout through predict_segments with the fused model in
-   inference mode, kernel and plain in turns as in phase 4; the kernel
+   inference mode, kernel and plain in turns as in phase 5; the kernel
    must launch once per batch, and the top-k selections must be equal
    apart from entries whose score lies within 1e-6 of another's;
-9. train fused: 24 steps over the same 48 labeled segments (batch 8,
-   buckets [8, 16, 24, 32], Adam with warm-up and both milestones inside
-   the 24 steps), once plain and once with the kernel from the same
-   carried-across init; step 1 losses must agree to rtol 1e-4, every
-   step to rtol 1e-3, the last loss must be below the first, and the
-   kernel must launch once per step; a shorter kernel run under
-   torch.profiler gives the device's busy share.
+10. train fused: 24 steps over the same 48 labeled segments (batch 8,
+    buckets [8, 16, 24, 32], Adam with warm-up and both milestones inside
+    the 24 steps), once plain and once with the kernel from the same
+    carried-across init; step 1 losses must agree to rtol 1e-4, every
+    step to rtol 1e-3, the last loss must be below the first, and the
+    kernel must launch once per step; a shorter kernel run under
+    torch.profiler gives the device's busy share;
+11. serve PPN-pruned (configs/tspn_config.yaml with PRUNE_AT_INFERENCE):
+    the segments of phases 5 and 6 through a model with the PPN head
+    (35 -> 64 -> 35, seeded init carried across), NUM_PAIR_PROPOSALS 256,
+    kernel and plain in turns; the same launches per batch as unpruned,
+    equal selections, one profiled run;
+12. train PPN: phase 10 with the PPN head and its loss; loss_rel and
+    loss_pair at step 1 agree to rtol 1e-4 and every step to 1e-3, and
+    the last total loss is below the first.
 
-The kernel launches of the main path are counted from zero: q8s over
-phases 4-5, fused_classify over phases 8-9. It prints the kernels' JSON
-line, then as its last line {"ok": true, "device": {...}}. Without a
-CUDA device it exits nonzero before printing any result.
+The kernel launches of the main path are counted from zero before each
+main-path phase group and read right after it: phases 5-6, 9-10 and
+11-12. It prints the kernels' JSON line, then as its last line
+{"ok": true, "device": {...}}. Without a CUDA device it exits nonzero
+before printing any result.
 """
 
 from __future__ import annotations
@@ -82,25 +97,51 @@ TIE_TOL = 1e-6
 # geometry is 8 segments x 992 pairs, the serve geometry 16 x 992
 FUSED_CASES = (("train", 7936, 0), ("train_ragged", 7936 - 13, 40),
                ("serve", 16 * 992, 400))
+# the PPN of configs/tspn_config.yaml: 35 -> 64 -> 35 per role, K = 256
+PPN_HIDDEN, PPN_OUT, NUM_PAIR_PROPOSALS = 64, 35, 256
+# q8f_fused checks: (name, segments, rows per segment, tracklets N, pairs)
+K2_CASES = (("serve", 16, 992, 32, "canonical"), ("ragged", 7, 333, 19, "random"),
+            ("pruned", 16, 256, 32, "random"), ("out_of_range", 16, 256, 32, "outside"))
+# published NVIDIA H100 SXM peaks: HBM3 bytes/s, int8 tensor-core op/s,
+# f32 op/s on the CUDA cores
+PEAK = {"bytes": 3.35e12, "int8": 1979e12, "f32": 67e12}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+def cuda_median_ms(fn, warmup: int = 3, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one ``fn()``: the median over ``reps`` runs of
+    ``iters`` back-to-back calls, each run timed with CUDA events and
+    divided by ``iters``. A device-side sleep ahead of each run lets the
+    host queue all its launches first, so host launch latency (tens of
+    microseconds through the Python wrappers) is not timed."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(iters):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)  # about 25 ms of device time
         start.record()
-        fn()
+        for _ in range(iters):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def bound(tensors, out, ops: float, kind: str) -> dict:
+    """Least time the card could take for a call: the larger of its bytes
+    (each input read once, the output written once) over the HBM rate and
+    its operations over the peak rate of their type."""
+    moved = sum(t.numel() * t.element_size() for t in tensors) + out.numel() * out.element_size()
+    bytes_ms, ops_ms = moved / PEAK["bytes"] * 1e3, ops / PEAK[kind] * 1e3
+    return {"bytes": moved, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def phase_kernel_check(dev) -> dict:
@@ -134,15 +175,91 @@ def phase_kernel_check(dev) -> dict:
         ms = cuda_median_ms(lambda: pw.normalize_classify_q8s(*args))
         plain_ms = cuda_median_ms(lambda: pw.normalize_classify_q8s_plain(*args))
         report[name] = {"rows": p, "width": d, "cols": r, "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms}
+                        "ms": ms, "plain_ms": plain_ms,
+                        **bound(args[:5], out, 2.0 * p * d * r, "int8")}
         log(f"q8s {name}: P={p} D={d} R={r} equal=True "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"bound {report[name]['bound_ms']:.4f} ms ({report[name]['bound_by']})")
     return report
 
 
-def seeded_model(dev):
-    """normal(0.01) classifier init from a numpy seed, carried across from
-    the JAX param-tree layout as a JAX checkpoint would be."""
+def k2_inputs(gen, bsz: int, p: int, n: int, pairs_kind: str, dev):
+    """q8f_fused operands at the rel geometry (D 3072, R 132): int8 rows
+    (zero padding rows at the end of each segment), the rows' scales,
+    pairs canonical (subject-major over N tracklets, then (0, 0)
+    padding), random, or random with a share outside [0, N), and an A
+    table of tracklet-pass magnitude."""
+    from tspn_tpu_torch.ops import pairwise as pw
+
+    d, r = pw.rel_geom().device_dim, NUM_PREDICATES
+    x = torch.randint(-127, 128, (bsz, p, d), generator=gen, dtype=torch.int8)
+    x[:, -5:] = 0
+    s = torch.rand((bsz, p), generator=gen) / 64
+    if pairs_kind == "canonical":
+        sub, obj = torch.nonzero(~torch.eye(n, dtype=torch.bool), as_tuple=True)
+        pairs = torch.zeros((bsz, p, 2), dtype=torch.int32)
+        pairs[:, : sub.numel()] = torch.stack([sub, obj], -1).to(torch.int32)
+    else:
+        pairs = torch.randint(0, n, (bsz, p, 2), generator=gen, dtype=torch.int32)
+        if pairs_kind == "outside":
+            pairs[:, ::7, 0] = n + 3
+            pairs[:, 1::5, 1] = -1
+            pairs[:, ::11, 1] = n
+    qw_t = torch.randint(-127, 128, (r, d), generator=gen, dtype=torch.int8)
+    sw = torch.rand((r,), generator=gen) / 127
+    b = torch.randn((r,), generator=gen)
+    a = torch.randn((bsz, n, 2 * r), generator=gen) * 4
+    return [t.to(dev) for t in (x, s, pairs, qw_t, sw, b, a)]
+
+
+def phase_k2_check(dev) -> dict:
+    """q8f_fused vs its plain version, bit for bit, at four geometries."""
+    from tspn_tpu_torch.ops import pairwise as pw
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    report = {}
+    for name, bsz, p, n, kind in K2_CASES:
+        args = k2_inputs(gen, bsz, p, n, kind, dev)
+        out = pw.q8f_fused(*args)
+        ref = pw.factored_classify_q8_fused_plain(*args)
+        torch.cuda.synchronize()
+        if out.shape != (bsz, p, NUM_PREDICATES) or not torch.isfinite(out).all():
+            raise AssertionError(f"q8f_fused {name}: bad output {tuple(out.shape)}")
+        err = (out - ref).abs().max().item()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"q8f_fused {name}: kernel != plain, max |err| {err}")
+        ms = cuda_median_ms(lambda: pw.q8f_fused(*args))
+        plain_ms = cuda_median_ms(lambda: pw.factored_classify_q8_fused_plain(*args))
+        d = args[0].shape[-1]
+        report[name] = {"segments": bsz, "rows": p, "tracklets": n, "pairs": kind,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        **bound(args, out, 2.0 * bsz * p * d * NUM_PREDICATES, "int8")}
+        log(f"q8f_fused {name}: {bsz} x {p} rows, N={n}, {kind} pairs, equal=True "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"bound {report[name]['bound_ms']:.4f} ms ({report[name]['bound_by']}, "
+            f"{report[name]['bytes'] / 1e6:.2f} MB)")
+    return report
+
+
+def ppn_params(rng) -> dict:
+    """The flax PPNHead's Dense layers, (in, out) kernels drawn with
+    lecun-normal scale, zero biases."""
+    import numpy as np
+
+    def dense(fan_in, fan_out):
+        return {"kernel": (rng.normal(0, 1, (fan_in, fan_out)) / np.sqrt(fan_in)
+                           ).astype(np.float32),
+                "bias": np.zeros(fan_out, np.float32)}
+
+    c = SERVE["num_objects"]
+    return {f"{role}_fc{k}": dense(*shape) for role in ("sub", "obj")
+            for k, shape in ((1, (c, PPN_HIDDEN)), (2, (PPN_HIDDEN, PPN_OUT)))}
+
+
+def seeded_model(dev, ppn: bool = False):
+    """normal(0.01) classifier init from a numpy seed (and the PPN head's,
+    with ``ppn``), carried across from the JAX param-tree layout as a JAX
+    checkpoint would be."""
     import numpy as np
 
     from tspn_tpu_torch.models.tspn import build_model
@@ -153,15 +270,18 @@ def seeded_model(dev):
         "kernel": rng.normal(0, 0.01, (FEATURE_DIM, NUM_PREDICATES)).astype(np.float32),
         "bias": np.zeros(NUM_PREDICATES, np.float32),
     }}}
-    model = build_model(NUM_PREDICATES, FEATURE_DIM)
+    if ppn:
+        params["ppn_head"] = ppn_params(rng)
+    model = build_model(NUM_PREDICATES, FEATURE_DIM, use_ppn=ppn,
+                        ppn_hidden=PPN_HIDDEN, ppn_out=PPN_OUT)
     model.load_state_dict(state_dict_from_jax(params))
     return model.to(dev).eval()
 
 
-def seeded_fused_model(dev, inference: bool):
+def seeded_fused_model(dev, inference: bool, ppn: bool = False):
     """The fused classifier's normal(0.01) init (device-layout kernel,
-    zero bias) from a numpy seed, carried across from the JAX param-tree
-    layout."""
+    zero bias), and the PPN head's with ``ppn``, from a numpy seed,
+    carried across from the JAX param-tree layout."""
     import numpy as np
 
     from tspn_tpu_torch.data.layout import DEFAULT_LAYOUT
@@ -174,8 +294,11 @@ def seeded_fused_model(dev, inference: bool):
                              ).astype(np.float32),
         "bias": np.zeros(NUM_PREDICATES, np.float32),
     }}
+    if ppn:
+        params["ppn_head"] = ppn_params(rng)
     model = build_model(NUM_PREDICATES, fused_classifier=True, inference=inference,
-                        num_objects=SERVE["num_objects"])
+                        use_ppn=ppn, num_objects=SERVE["num_objects"],
+                        ppn_hidden=PPN_HIDDEN, ppn_out=PPN_OUT)
     model.load_state_dict(state_dict_from_jax(params))
     return model.to(dev)
 
@@ -231,7 +354,8 @@ def same_selection_but_ties(kernel: dict, plain: dict) -> int:
 
 def check_output(out: dict, dataset) -> None:
     """Every segment of >= 2 tracklets has min(200, 20 P) finite
-    probabilities with in-range tracklet ids."""
+    probabilities with in-range tracklet ids (PPN pruning keeps
+    min(256, P) rows, which leaves that count as it is)."""
     expected = {r.index: r for r in dataset.records if r.num_proposals > 1}
     if set(out) != set(expected):
         raise AssertionError("served segments differ from the dataset's")
@@ -275,14 +399,17 @@ def profile_run(fn) -> dict:
             "top_device_ms": rows[:6]}
 
 
-def phase_serve(label: str, dataset, model, dev, kernel: str,
-                launches_per_batch: int, compare=same_selection) -> dict:
-    """predict_segments with the kernel and with the plain versions, in
-    turns, after one untimed run of each; then one profiled kernel run."""
+def phase_serve(label: str, dataset, model, dev, launches_per_batch: dict,
+                compare=same_selection, **extra) -> dict:
+    """predict_segments with the kernels and with the plain versions, in
+    turns, after one untimed run of each; then one profiled kernel run.
+    ``launches_per_batch`` maps each kernel to its launches per batch;
+    ``extra`` goes to predict_segments (PPN pruning)."""
     from tspn_tpu_torch.data.loader import BucketedLoader
     from tspn_tpu_torch.ops import pairwise as pw
     from tspn_tpu_torch.runtime.predict import predict_segments
 
+    serve = dict(SERVE, **extra)
     loader = BucketedLoader(dataset, SERVE["buckets"], SERVE["batch_size"],
                             dataset.feature_width(), SERVE["num_objects"])
     t0 = time.perf_counter()
@@ -293,27 +420,29 @@ def phase_serve(label: str, dataset, model, dev, kernel: str,
     rows = sum(r.feats.shape[0] for r in dataset.records)
     feat_bytes = sum(r.feats.nbytes for r in dataset.records)
     log(f"serve {label}: {len(dataset)} segments, {rows} pairs "
-        f"({padded} rows scored with padding), {feat_bytes / 1e9:.3f} GB of "
+        f"({padded} rows with padding), {feat_bytes / 1e9:.3f} GB of "
         f"pair rows, {n_batches} batches; batch assembly alone {loader_s:.3f} s")
 
     for variant in ("plain", "kernel"):  # warm-up, untimed
-        predict_segments(model, dataset, device=dev, plain=variant == "plain", **SERVE)
+        predict_segments(model, dataset, device=dev, plain=variant == "plain", **serve)
     runs = {"plain": [], "kernel": []}
     outs = {}
     for variant in ("plain", "kernel", "kernel", "plain"):
-        before = pw.LAUNCHES[kernel]
+        before = dict(pw.LAUNCHES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = predict_segments(model, dataset, device=dev,
-                               plain=variant == "plain", **SERVE)
+                               plain=variant == "plain", **serve)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launched = pw.LAUNCHES[kernel] - before
-        want = launches_per_batch * n_batches if variant == "kernel" else 0
-        if launched != want:
-            raise AssertionError(
-                f"serve {label} {variant}: {launched} {kernel} launches, want {want}"
-            )
+        for kernel, per_batch in launches_per_batch.items():
+            launched = pw.LAUNCHES[kernel] - before[kernel]
+            want = per_batch * n_batches if variant == "kernel" else 0
+            if launched != want:
+                raise AssertionError(
+                    f"serve {label} {variant}: {launched} {kernel} launches, "
+                    f"want {want}"
+                )
         check_output(out, dataset)
         runs[variant].append(len(dataset) / seconds)
         outs.setdefault(variant, selection(out))
@@ -324,31 +453,20 @@ def phase_serve(label: str, dataset, model, dev, kernel: str,
     except AssertionError as exc:
         raise AssertionError(f"serve {label}: {exc}") from None
     prof = profile_run(
-        lambda: predict_segments(model, dataset, device=dev, **SERVE)
+        lambda: predict_segments(model, dataset, device=dev, **serve)
     )
-    result = {"batches": n_batches, "pairs": rows, "rows_scored": padded,
+    result = {"batches": n_batches, "pairs": rows, "rows_with_padding": padded,
               "feature_bytes": feat_bytes, "loader_s": loader_s,
               "near_ties_excluded": ties,
               "segments_per_s": statistics.median(runs["kernel"]),
               "plain_segments_per_s": statistics.median(runs["plain"]),
               "runs": runs, "profile": prof}
     log(f"serve {label}: top-k equal to plain in all {len(outs['kernel'])} "
-        f"segments ({ties} near-tie entries excluded); "
-        f"{launches_per_batch * n_batches} launches per run; "
-        f"segments/s kernel {runs['kernel']} plain {runs['plain']}")
+        f"segments ({ties} near-tie entries excluded); launches per batch "
+        f"{launches_per_batch}; segments/s kernel {runs['kernel']} "
+        f"plain {runs['plain']}")
     log(f"serve {label} profile: {json.dumps(prof)}")
     return result
-
-
-def phase_serve_q8(mode: str, model, dev, launches_per_batch: int) -> dict:
-    from tspn_tpu_torch.data.synthetic import synthetic_segments
-
-    t0 = time.perf_counter()
-    dataset = synthetic_segments(NUM_SEGMENTS, mode, seed=SEED,
-                                 num_objects=SERVE["num_objects"],
-                                 num_predicates=NUM_PREDICATES)
-    log(f"serve {mode}: generated in {time.perf_counter() - t0:.1f} s")
-    return phase_serve(mode, dataset, model, dev, "q8s", launches_per_batch)
 
 
 def raw_device_rows(p: int, zero_rows: int, gen, dev):
@@ -372,7 +490,7 @@ def raw_device_rows(p: int, zero_rows: int, gen, dev):
 
 
 def phase_fused_check(dev) -> dict:
-    """fused_classify vs its plain version within the part-4 bound."""
+    """fused_classify vs its plain version within the stated bound."""
     from tspn_tpu_torch.data.layout import DEFAULT_LAYOUT as lo
     from tspn_tpu_torch.ops import pairwise as pw
 
@@ -388,10 +506,10 @@ def phase_fused_check(dev) -> dict:
         if out.shape != (p, NUM_PREDICATES) or not torch.isfinite(out).all():
             raise AssertionError(f"fused_classify {name}: bad output {tuple(out.shape)}")
         xn = pw._normalize_device_layout(x.double(), lo).abs()
-        bound = 1e-5 * (xn @ w.double().abs() + b.double().abs()) + 1e-6
+        tol = 1e-5 * (xn @ w.double().abs() + b.double().abs()) + 1e-6
         del xn
         err = (out.double() - ref.double()).abs()
-        worst = float((err / bound).max())
+        worst = float((err / tol).max())
         max_err = float(err.max())
         if worst > 1.0:
             raise AssertionError(
@@ -405,22 +523,26 @@ def phase_fused_check(dev) -> dict:
                         "max_abs_err": max_err, "worst_err_over_bound": worst,
                         "ms": ms, "plain_ms": plain_ms,
                         "kernel_tflops": flop / ms / 1e9,
-                        "plain_tflops": flop / plain_ms / 1e9}
+                        "plain_tflops": flop / plain_ms / 1e9,
+                        **bound((x, w, b), out, flop, "f32")}
         log(f"fused_classify {name}: P={p} D={lo.device_dim} R={NUM_PREDICATES} "
             f"max|err| {max_err:.3e} (worst err/bound {worst:.3f}) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        del x, out, ref, err, bound
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"bound {report[name]['bound_ms']:.4f} ms ({report[name]['bound_by']})")
+        del x, out, ref, err, tol
     return report
 
 
-def phase_train(dataset, dev) -> dict:
-    """Fused training, plain then kernel from the same init; then a
-    shorter profiled kernel run."""
+def phase_train(label: str, dataset, dev, ppn: bool = False) -> dict:
+    """Fused training (with the PPN head and its loss under ``ppn``),
+    plain then kernel from the same init; then a shorter profiled kernel
+    run. Step-1 losses agree to rtol 1e-4, every step to 1e-3, for the
+    total and for each loss term; the last total loss is below the first."""
     from tspn_tpu_torch.ops import pairwise as pw
     from tspn_tpu_torch.runtime.train import train_segments
 
     def run(plain: bool, steps: int):
-        model = seeded_fused_model(dev, inference=False)
+        model = seeded_fused_model(dev, inference=False, ppn=ppn)
         before = pw.LAUNCHES["fused_classify"]
         result = train_segments(model, dataset, solver=SOLVER, max_iter=steps,
                                 device=dev, plain=plain, **TRAIN)
@@ -428,42 +550,52 @@ def phase_train(dataset, dev) -> dict:
         want = 0 if plain else steps
         if launched != want or result.step != steps:
             raise AssertionError(
-                f"train {'plain' if plain else 'kernel'}: {launched} launches "
-                f"over {result.step} steps, want {want} over {steps}"
+                f"train {label} {'plain' if plain else 'kernel'}: {launched} "
+                f"launches over {result.step} steps, want {want} over {steps}"
             )
         return result
 
     results = {"plain": run(True, TRAIN_STEPS), "kernel": run(False, TRAIN_STEPS)}
-    lp, lk = results["plain"].losses, results["kernel"].losses
-    rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
-    if rel[0] > 1e-4 or max(rel) > 1e-3:
-        raise AssertionError(f"train: kernel losses {lk} vs plain {lp}")
+    series = {"loss": (results["kernel"].losses, results["plain"].losses)}
+    for term in results["kernel"].loss_terms:
+        series[term] = (results["kernel"].loss_terms[term],
+                        results["plain"].loss_terms[term])
+    if ppn and set(series) != {"loss", "loss_rel", "loss_pair"}:
+        raise AssertionError(f"train {label}: loss terms {sorted(series)}")
+    max_rel = {}
+    for name, (lk, lp) in series.items():
+        rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
+        if len(rel) != TRAIN_STEPS or rel[0] > 1e-4 or max(rel) > 1e-3:
+            raise AssertionError(f"train {label}: kernel {name} {lk} vs plain {lp}")
+        max_rel[name] = max(rel)
+    lk, lp = series["loss"]
     if not (lk[-1] < lk[0] and lp[-1] < lp[0]):
-        raise AssertionError(f"train: the loss did not fall: {lk}")
+        raise AssertionError(f"train {label}: the loss did not fall: {lk}")
     prof = profile_run(lambda: run(False, PROFILED_STEPS))
     report = {"steps": TRAIN_STEPS, "batch": TRAIN["batch_size"],
-              "losses_kernel": lk, "losses_plain": lp,
-              "max_rel_loss_diff": max(rel), "profile_steps": PROFILED_STEPS,
+              "losses_kernel": {k: v[0] for k, v in series.items()},
+              "losses_plain": {k: v[1] for k, v in series.items()},
+              "max_rel_loss_diff": max_rel, "profile_steps": PROFILED_STEPS,
               "profile": prof}
     for name, r in results.items():
         report[f"{name}_steps_per_s"] = r.step / r.seconds
         report[f"{name}_segments_per_s"] = r.step * TRAIN["batch_size"] / r.seconds
-    log(f"train fused: {TRAIN_STEPS} steps, loss {lk[0]:.5f} -> {lk[-1]:.5f} "
-        f"(plain {lp[0]:.5f} -> {lp[-1]:.5f}, max rel diff {max(rel):.2e}); "
-        f"steps/s kernel {report['kernel_steps_per_s']:.3f} "
+    terms = ", ".join(f"{k} {v[0][0]:.5f} -> {v[0][-1]:.5f}" for k, v in series.items())
+    log(f"train {label}: {TRAIN_STEPS} steps, {terms} (max rel diff to plain "
+        f"{json.dumps(max_rel)}); steps/s kernel {report['kernel_steps_per_s']:.3f} "
         f"plain {report['plain_steps_per_s']:.3f}")
-    log(f"train fused profile ({PROFILED_STEPS} steps): {json.dumps(prof)}")
+    log(f"train {label} profile ({PROFILED_STEPS} steps): {json.dumps(prof)}")
     return report
 
 
 def build_kernels() -> None:
-    """Both kernels' nvcc builds, started together."""
+    """The three kernels' nvcc builds, one per source, started together."""
     from tspn_tpu_torch.ops import _cuda
 
-    with ThreadPoolExecutor(2) as pool:
-        futures = [pool.submit(_cuda.q8s_library),
-                   pool.submit(_cuda.fused_classify_library)]
-        for f in futures:
+    libraries = (_cuda.q8s_library, _cuda.q8f_fused_library,
+                 _cuda.fused_classify_library)
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        for f in [pool.submit(lib) for lib in libraries]:
             f.result()
 
 
@@ -477,11 +609,36 @@ def report_build(name: str) -> None:
     ))
 
 
+def main_path(name: str, fn):
+    """Drive one group of main-path phases with every launch count set to
+    0 just before and read just after -> (fn's result, counts)."""
+    from tspn_tpu_torch.ops import pairwise as pw
+
+    pw.reset_launches()
+    result = fn()
+    counts = dict(pw.LAUNCHES)
+    log(f"main path {name}: launches {counts}")
+    return result, counts
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: int,
+                 checks: dict, timed: str) -> dict:
+    """One entry of the kernels line: the largest error over the checked
+    geometries, and the times and bound at the geometry ``timed``. No
+    single PyTorch call computes any of the three kernels' functions, so
+    there is no library time."""
+    c = checks[timed]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(v["max_abs_err"] for v in checks.values()),
+            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     from tspn_tpu_torch.data.synthetic import synthetic_segments
-    from tspn_tpu_torch.ops import pairwise as pw
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     dev = torch.device("cuda", 0)
@@ -495,66 +652,87 @@ def main() -> int:
 
     build_kernels()
     report_build("q8s")
-
     checks = phase_kernel_check(dev)
+    report_build("q8f_fused")
+    k2_checks = phase_k2_check(dev)
 
-    model = seeded_model(dev)
-    pw.reset_launches()
-    serve = {
-        "q8f": phase_serve_q8("q8f", model, dev, launches_per_batch=2),
-        "q8": phase_serve_q8("q8", model, dev, launches_per_batch=1),
-    }
-    q8s_launches = pw.LAUNCHES["q8s"]
-    if q8s_launches == 0:
-        raise AssertionError("the serve path launched no q8s kernel")
-    del model
+    t0 = time.perf_counter()
+    data = {mode: synthetic_segments(NUM_SEGMENTS, mode, seed=SEED,
+                                     num_objects=SERVE["num_objects"],
+                                     num_predicates=NUM_PREDICATES)
+            for mode in ("q8f", "q8")}
+    log(f"serve: q8f and q8 sets of {NUM_SEGMENTS} segments generated in "
+        f"{time.perf_counter() - t0:.1f} s")
+    q8f_launches = {"q8s": 1, "q8f_fused": 1}
+
+    def serve_int8(ppn: bool, **extra):
+        model = seeded_model(dev, ppn=ppn)
+        tag = "_pruned" if ppn else ""
+        return {
+            f"q8f{tag}": phase_serve(f"q8f{tag}", data["q8f"], model, dev,
+                                     q8f_launches, **extra),
+            f"q8{tag}": phase_serve(f"q8{tag}", data["q8"], model, dev,
+                                    {"q8s": 1}, **extra),
+        }
+
+    serve, counts_int8 = main_path("q8f + q8 serve", lambda: serve_int8(False))
 
     report_build("fused_classify")
     fused_checks = phase_fused_check(dev)
-
     t0 = time.perf_counter()
     fused_data = synthetic_segments(FUSED_SEGMENTS, "f32dev", seed=SEED,
                                     num_objects=SERVE["num_objects"],
                                     num_predicates=NUM_PREDICATES)
     log(f"fused: {FUSED_SEGMENTS} labeled segments generated in "
         f"{time.perf_counter() - t0:.1f} s")
-    pw.reset_launches()
-    serve["fused_f32"] = phase_serve(
-        "fused_f32", fused_data, seeded_fused_model(dev, inference=True).eval(), dev,
-        "fused_classify", 1, compare=same_selection_but_ties,
-    )
-    train = phase_train(fused_data, dev)
-    fused_launches = pw.LAUNCHES["fused_classify"]
+
+    def fused():
+        served = phase_serve(
+            "fused_f32", fused_data, seeded_fused_model(dev, inference=True).eval(),
+            dev, {"fused_classify": 1}, compare=same_selection_but_ties,
+        )
+        return served, phase_train("fused", fused_data, dev)
+
+    (serve["fused_f32"], train), counts_fused = main_path("fused serve + train", fused)
     want = serve["fused_f32"]["batches"] * 4 + TRAIN_STEPS + PROFILED_STEPS
-    log(f"fused_classify launches on the main path: {fused_launches} = "
-        f"{serve['fused_f32']['batches']} batches x 4 kernel serve runs "
-        f"(warm-up, two timed, profiled) + {TRAIN_STEPS} + {PROFILED_STEPS} "
-        f"kernel training steps (timed, profiled)")
-    if fused_launches != want:
-        raise AssertionError(f"fused_classify launches {fused_launches}, want {want}")
+    if counts_fused["fused_classify"] != want:
+        raise AssertionError(
+            f"fused_classify launches {counts_fused['fused_classify']}, want {want}: "
+            f"{serve['fused_f32']['batches']} batches x 4 kernel serve runs "
+            f"(warm-up, two timed, profiled) + {TRAIN_STEPS} + {PROFILED_STEPS} "
+            f"kernel training steps"
+        )
+
+    def ppn():
+        served = serve_int8(True, num_pair_proposals=NUM_PAIR_PROPOSALS)
+        return served, phase_train("fused_ppn", fused_data, dev, ppn=True)
+
+    (served_ppn, train_ppn), counts_ppn = main_path("PPN serve + train", ppn)
+    serve.update(served_ppn)
+    for kernel, counts in (("q8s", (counts_int8, counts_ppn)),
+                           ("q8f_fused", (counts_int8, counts_ppn)),
+                           ("fused_classify", (counts_fused, counts_ppn))):
+        if any(c[kernel] == 0 for c in counts):
+            raise AssertionError(f"a main-path phase launched no {kernel} kernel")
+    launches = {k: counts_int8[k] + counts_fused[k] + counts_ppn[k]
+                for k in counts_int8}
 
     log(smi)
-    log(json.dumps({"serve": serve, "train_fused": train,
-                    "q8s_geometries": checks, "fused_geometries": fused_checks}))
-    log(json.dumps({"kernels": [{
-        "name": "q8s",
-        "route": "cuda",
-        "source": "tspn_tpu_torch/csrc/q8s.cu",
-        "replaces": "tspn_tpu/ops/pairwise.py:481",
-        "launches": q8s_launches,
-        "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
-        "ms": checks["rel"]["ms"],
-        "plain_ms": checks["rel"]["plain_ms"],
-    }, {
-        "name": "fused_classify",
-        "route": "cuda",
-        "source": "tspn_tpu_torch/csrc/fused_classify.cu",
-        "replaces": "tspn_tpu/ops/pairwise.py:1288",
-        "launches": fused_launches,
-        "max_abs_err": max(c["max_abs_err"] for c in fused_checks.values()),
-        "ms": fused_checks["train"]["ms"],
-        "plain_ms": fused_checks["train"]["plain_ms"],
-    }]}))
+    log(json.dumps({"serve": serve, "train_fused": train, "train_fused_ppn": train_ppn,
+                    "q8s_geometries": checks, "q8f_fused_geometries": k2_checks,
+                    "fused_geometries": fused_checks,
+                    "main_path_launches": {"int8_serve": counts_int8,
+                                           "fused": counts_fused, "ppn": counts_ppn}}))
+    log(json.dumps({"kernels": [
+        kernel_entry("q8s", "tspn_tpu_torch/csrc/q8s.cu",
+                     "tspn_tpu/ops/pairwise.py:481", launches["q8s"], checks, "rel"),
+        kernel_entry("fused_classify", "tspn_tpu_torch/csrc/fused_classify.cu",
+                     "tspn_tpu/ops/pairwise.py:1288", launches["fused_classify"],
+                     fused_checks, "train"),
+        kernel_entry("q8f_fused", "tspn_tpu_torch/csrc/q8f_fused.cu",
+                     "tspn_tpu/ops/pairwise.py:1071", launches["q8f_fused"],
+                     k2_checks, "serve"),
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -148,17 +148,28 @@ def test_training_checkpoint_round_trip(tmp_path):
 
 @pytest.mark.parametrize("what", ["ppn", "fused", "ppn_weights", "fused_weights"])
 def test_unported_parts_raise(what, jax_params, tmp_path):
-    """PPN raises; so do the fused classifier in bf16 (queued) and a
-    JAX checkpoint given to --resume (its optax state is not carried
-    across)."""
+    """Span mode raises: the CLI's training with RELPN.USE_DPN ("ppn": the
+    PPN itself is ported, its video-level chain ranker belongs to span
+    mode) and a param tree with a span-mode subtree ("ppn_weights"); so do
+    the fused classifier in bf16 (queued) and a JAX checkpoint given to
+    --resume (its optax state is not carried across)."""
+    from types import SimpleNamespace
+
+    from tspn_tpu_torch import base
+    from tspn_tpu_torch.config import get_default_config
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "ppn":
-            build_model(use_ppn=True)
+            cfg = get_default_config()
+            assert cfg.RELPN.USE_PPN and cfg.RELPN.USE_DPN
+            base.training(cfg, SimpleNamespace(dataset="vidvrd", device="cpu",
+                                               resume=False), str(tmp_path))
         elif what == "fused":
             model = build_model(num_predicates=R, fused_classifier=True)
             model({"feats": torch.zeros((1, 2, 11264), dtype=torch.bfloat16)})
         elif what == "ppn_weights":
-            tckpt.state_dict_from_jax({"classifier": {}, "ppn_head": {}})
+            tckpt.state_dict_from_jax({"classifier": {}, "ppn_head": {},
+                                       "span_head": {}})
         else:
             path = str(tmp_path / "baseline_weights_iter_3.pt")
             jckpt.save_checkpoint(path, jax_params[1], step=3)

@@ -9,16 +9,24 @@
   carried back to the storage layout).
 * The port's ``--train --detect`` writes a checkpoint and a valid
   prediction JSON, and ``--train --resume`` continues at the
-  checkpoint's step.
-* The device path of the port imports none of jax, flax, h5py, yaml,
-  msgpack or tspn_tpu: a subprocess whose import system refuses them
-  imports every module of tspn_tpu_torch and chip_smoke.
+  checkpoint's step. With a config like configs/tspn_config.yaml (the
+  PPN on, span mode off) plus PRUNE_AT_INFERENCE, ``--train`` trains the
+  PPN head too and ``--detect`` serves the q8f store PPN-pruned.
+* ``--train`` and ``--detect`` run on ``cuda`` unless ``--device`` names
+  another device; without a card that default stops with a hint.
+* No file of the port, and not chip_smoke.py, imports ``tspn_tpu``: a
+  static walk of every import statement (and ``import_module`` call) at
+  any depth. Besides, the device path imports none of jax, flax, h5py,
+  yaml, msgpack or tspn_tpu: a subprocess whose import system refuses
+  them imports every module of tspn_tpu_torch and chip_smoke.
 * chip_smoke.py exits nonzero and prints no result without a CUDA
   device, and in a directory without the package.
 """
 
 from __future__ import annotations
 
+import ast
+import glob
 import json
 import os
 import shutil
@@ -236,17 +244,102 @@ def test_port_train_detect_and_resume(fused_trained):
     assert resumed["step"] == 6 and resumed["optimizer"] is not None
 
 
+def test_port_train_detect_tspn_config(served_workdir):
+    """--train then --detect with the PPN on (configs/tspn_config.yaml's
+    RELPN, span mode off) and PPN pruning at inference, on the CPU."""
+    from tspn_tpu.data.annotations import VidVRD
+    from tspn_tpu_torch.runtime.checkpoint import load_checkpoint
+
+    work = served_workdir
+    data = work / "data" / "vidvrd"
+    num_predicates = VidVRD(str(data), str(data / "videos"),
+                            ["train", "test"]).get_predicate_num()
+    overrides = _train_overrides("porttspn", 4)
+    overrides["MODEL"]["FUSED_CLASSIFIER"] = False
+    overrides["RELPN"] = {"USE_PPN": True, "USE_DPN": False,
+                          "PPN": {"PRUNE_AT_INFERENCE": True, "NUM_PAIR_PROPOSALS": 8}}
+    _write_config(work / "port_tspn.yaml", "q8f", num_predicates,
+                  dump="porttspn_weights_iter_4.pt", **overrides)
+    _run_port_base(work, ["--config", "port_tspn.yaml", "--data_dir", "data",
+                          "--dataset", "vidvrd", "--train", "--detect"])
+    ckpt = load_checkpoint(str(work / "vidvrd-baseline-output" / "models"
+                               / "porttspn_weights_iter_4.pt"))
+    assert ckpt["step"] == 4
+    assert {k for k in ckpt["state_dict"] if k.startswith("ppn_head.")} == {
+        f"ppn_head.{role}_fc{i}.{p}" for role in ("sub", "obj") for i in (1, 2)
+        for p in ("weight", "bias")}
+    out = _prediction_path(work)
+    with open(out) as f:
+        got = json.load(f)
+    os.remove(out)
+    assert got["version"] == "VERSION 1.0" and got["results"]
+    for entries in got["results"].values():
+        for e in entries:
+            assert 0.0 <= e["score"] <= 1.0 and len(e["triplet"]) == 3
+
+
 def test_cli_refuses_unported_stages(capsys):
+    import torch
+
     from tspn_tpu_torch import base
 
     assert base.main(["--preprocess", "--config", "x.yaml"]) == 2
     assert "base.py" in capsys.readouterr().err
-    for stage in ("--train", "--detect"):
-        with pytest.raises(SystemExit):
-            base.main([stage, "--data_dir", "d", "--dataset", "vidvrd"])
-        assert "--device" in capsys.readouterr().err
+    assert base.build_parser().parse_args(["--detect"]).device == "cuda"
+    if not torch.cuda.is_available():
+        for stage in ("--train", "--detect"):
+            with pytest.raises(SystemExit):
+                base.main([stage, "--data_dir", "d", "--dataset", "vidvrd"])
+            assert "--device cpu" in capsys.readouterr().err
     assert base.main([]) == 0
     assert "--detect" in capsys.readouterr().out
+
+
+def _tspn_tpu_imports(source: str, name: str = "<source>") -> list:
+    """(line, module) of every import of tspn_tpu (not tspn_tpu_torch) in
+    ``source``, at any depth: import statements, absolute from-imports,
+    and import_module / __import__ calls with a literal name."""
+    found = []
+    for node in ast.walk(ast.parse(source, name)):
+        if isinstance(node, ast.Import):
+            modules = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            modules = [node.module or ""] if node.level == 0 else []
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__")):
+            modules = [node.args[0].value]
+        else:
+            continue
+        found += [(node.lineno, m) for m in modules if m.split(".")[0] == "tspn_tpu"]
+    return found
+
+
+@pytest.mark.parametrize("snippet,hits", [
+    ("def f():\n    from tspn_tpu.data import segments\n", 1),
+    ("class A:\n    def g(self):\n        import tspn_tpu.config as c\n", 1),
+    ("import importlib\nimportlib.import_module('tspn_tpu.association')\n", 1),
+    ("import tspn_tpu\n", 1),
+    ("from tspn_tpu_torch.data import segments\nimport tspn_tpu_torch\n", 0),
+    ("from . import layout\n", 0),
+])
+def test_static_import_check_finds_nested_imports(snippet, hits):
+    assert len(_tspn_tpu_imports(snippet)) == hits
+
+
+def test_port_imports_nothing_of_tspn_tpu():
+    files = sorted(glob.glob(os.path.join(REPO, "tspn_tpu_torch", "**", "*.py"),
+                             recursive=True))
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 25
+    found = []
+    for path in files:
+        with open(path) as f:
+            found += [(os.path.relpath(path, REPO), *hit)
+                      for hit in _tspn_tpu_imports(f.read(), path)]
+    assert not found, found
 
 
 REFUSE = """
@@ -262,6 +355,11 @@ import tspn_tpu_torch.runtime.predict, tspn_tpu_torch.data.synthetic
 import tspn_tpu_torch.runtime.train, tspn_tpu_torch.solver.optim
 import tspn_tpu_torch.parallel.train_step, tspn_tpu_torch.models.tspn
 import tspn_tpu_torch.runtime.checkpoint, tspn_tpu_torch.base
+import tspn_tpu_torch.config, tspn_tpu_torch.data.segments
+import tspn_tpu_torch.data.annotations, tspn_tpu_torch.data.trajectory
+import tspn_tpu_torch.association, tspn_tpu_torch.runtime.logging_utils
+import tspn_tpu_torch.data.vrdataset, tspn_tpu_torch.data.preprocess
+import tspn_tpu_torch.models.ppn
 import tspn_tpu_torch
 for info in pkgutil.walk_packages(tspn_tpu_torch.__path__, "tspn_tpu_torch."):
     importlib.import_module(info.name)

@@ -6,9 +6,9 @@ flax are absent: ``python -m pytest tests/test_torch_q8s_gpu.py -q``.
 * The kernel equals its plain PyTorch version bit for bit at the serve
   path's three geometries, with a ragged row count and zero rows.
 * The wrapper raises on operands the kernel does not take.
-* predict_segments selects the same top-k with the kernel as with the
-  plain versions, launching the kernel twice per batch for q8f and once
-  for q8.
+* predict_segments selects the same top-k with the kernels as with the
+  plain versions, launching q8s once per batch for q8f (its tracklet
+  pass; q8f_fused scores the rel rows) and once for q8.
 """
 
 import numpy as np
@@ -73,6 +73,7 @@ def test_q8s_kernel_rejects_bad_operands(cuda_device):
 
 @pytest.mark.parametrize("mode,per_batch", [("q8f", 2), ("q8", 1)])
 def test_serve_kernel_matches_plain(cuda_device, mode, per_batch):
+    """``per_batch`` counts the launches of every kernel per batch."""
     from tspn_tpu_torch.data.loader import BucketedLoader
     from tspn_tpu_torch.data.synthetic import synthetic_segments
     from tspn_tpu_torch.models.tspn import build_model
@@ -83,11 +84,12 @@ def test_serve_kernel_matches_plain(cuda_device, mode, per_batch):
     model = build_model(seed=0).to(cuda_device).eval()
     batches = len(BucketedLoader(dataset, kw["buckets"], kw["batch_size"],
                                  dataset.feature_width(), 35))
-    before = tpw.LAUNCHES["q8s"]
+    tpw.reset_launches()
     out = predict_segments(model, dataset, device=cuda_device, **kw)
-    assert tpw.LAUNCHES["q8s"] - before == per_batch * batches
+    assert sum(tpw.LAUNCHES.values()) == per_batch * batches
     ref = predict_segments(model, dataset, device=cuda_device, plain=True, **kw)
-    assert tpw.LAUNCHES["q8s"] - before == per_batch * batches
+    assert sum(tpw.LAUNCHES.values()) == per_batch * batches
+    assert tpw.LAUNCHES["q8s"] == batches
 
     def selection(res):
         return {k: sorted((-float(s), tuple(i.tolist()), int(t[1]))

@@ -12,6 +12,8 @@
   gradients in different orders, and Adam divides each gradient by its
   own running RMS, which turns ulp-level gradient differences into small
   update differences that accumulate over the steps.
+  The port reads the artifacts through its own copies of the JAX
+  package's readers, pointed at the same artifact root.
 * Resume: 5 steps, then ``--resume`` to 10, equals 10 uninterrupted steps
   bit for bit (torch.equal), plateau state included; a JAX checkpoint
   given to ``--resume`` raises.
@@ -30,10 +32,21 @@ import torch
 from tspn_tpu.data.loader import BucketedLoader as JaxLoader
 from tspn_tpu.data.segments import get_model_path
 from tspn_tpu.runtime import train as jtrain
+from tspn_tpu.data.segments import get_output_dir
+from tspn_tpu_torch.data import segments as tseg
 from tspn_tpu_torch.data.loader import BucketedLoader
 from tspn_tpu_torch.data.synthetic import synthetic_segments
 from tspn_tpu_torch.runtime import train as ttrain
 from tspn_tpu_torch.runtime.checkpoint import latest_checkpoint, state_dict_from_jax
+
+
+@pytest.fixture
+def synthetic_dataset(synthetic_dataset):
+    """The conftest's synthetic set, with the port's artifact root (its own
+    copy of the JAX package's segments module) where the JAX package's
+    points."""
+    tseg.set_output_dir(get_output_dir())
+    return synthetic_dataset
 
 
 @pytest.mark.parametrize("mode,skip", [("f32", 0), ("f32", 3), ("f32dev", 2)])

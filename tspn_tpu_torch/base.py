@@ -1,17 +1,21 @@
 """Command line of the PyTorch port: ``python -m tspn_tpu_torch.base``.
 
 Takes the flags of the JAX package's ``base.py`` plus ``--device``.
-``--train [--resume]`` trains the segment-mode relation model on the
-given device (unfused, or fused with ``MODEL.FUSED_CLASSIFIER``) and
-writes ``<name>_weights_iter_<N>.pt`` under ``<OUTPUT_DIR>/models``.
-``--detect`` runs segment-mode relation detection and writes
+``--train [--resume]`` trains the segment-mode relation model, with the
+PPN pair head under ``RELPN.USE_PPN`` (unfused, or fused with
+``MODEL.FUSED_CLASSIFIER``), and writes ``<name>_weights_iter_<N>.pt``
+under ``<OUTPUT_DIR>/models``. ``--detect`` runs segment-mode relation
+detection, PPN-pruned under ``RELPN.PPN.PRUNE_AT_INFERENCE``, and writes
 ``<OUTPUT_DIR>/models/baseline_relation_prediction.json`` with the same
 contract; it serves the port's checkpoints and those of ``base.py
---train``. ``--preprocess`` is not ported yet: run it with ``base.py``.
+--train``. ``--preprocess`` and span mode (``RELPN.USE_DPN``) are not
+ported yet: run them with ``base.py``.
 
-Config parsing, dataset readers, greedy association and logging are the
-JAX package's host code, imported inside the functions that use them;
-they need PyYAML and h5py but not jax.
+Both run on ``--device cuda`` unless another device is named
+(``--device cpu`` runs every kernel's plain version). Config parsing,
+dataset readers, greedy association and logging are the port's own
+copies of the JAX package's host code; reading YAML and h5 files needs
+PyYAML and h5py, imported where a file is read.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from collections import defaultdict
 
 
 def _build_basedata(dataset: str, data_dir: str):
-    from tspn_tpu.data import BaseVidOR, BaseVidVRD
+    from tspn_tpu_torch.data.annotations import BaseVidOR, BaseVidVRD
 
     if dataset == "vidvrd":
         return BaseVidVRD(data_dir, os.path.join(data_dir, "videos"), ["train", "test"])
@@ -38,9 +42,9 @@ def _build_basedata(dataset: str, data_dir: str):
 
 
 def detect(cfg, args, data_dir) -> str:
-    from tspn_tpu import association
-    from tspn_tpu.data.segments import get_model_path
-    from tspn_tpu.runtime.logging_utils import get_timestamp, setup_logger
+    from tspn_tpu_torch import association
+    from tspn_tpu_torch.data.segments import get_model_path
+    from tspn_tpu_torch.runtime.logging_utils import get_timestamp, setup_logger
     from tspn_tpu_torch.runtime.predict import predict
 
     if cfg.RELPN.USE_DPN:
@@ -71,7 +75,7 @@ def detect(cfg, args, data_dir) -> str:
 
 
 def training(cfg, args, data_dir):
-    from tspn_tpu.runtime.logging_utils import get_timestamp, setup_logger
+    from tspn_tpu_torch.runtime.logging_utils import get_timestamp, setup_logger
     from tspn_tpu_torch.runtime.train import train
 
     if cfg.RELPN.USE_DPN:
@@ -84,7 +88,7 @@ def training(cfg, args, data_dir):
     return train(cfg, basedata, args.device, resume=args.resume, logger=logger)
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="VidVRD TSPN (PyTorch port)")
     parser.add_argument("--config", type=str, default="configs/baseline.yaml")
     parser.add_argument("--data_dir", type=str, help="dataset directory")
@@ -93,11 +97,17 @@ def main(argv=None) -> int:
     parser.add_argument("--train", action="store_true", help="Train model")
     parser.add_argument("--detect", action="store_true", help="Detect video visual relation")
     parser.add_argument("--resume", action="store_true", help="Resume from latest checkpoint")
-    parser.add_argument("--device", type=str, default=None,
-                        help="torch device for --train and --detect, e.g. cuda or cpu")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device for --train and --detect (default cuda; "
+                             "cpu runs the kernels' plain versions)")
     parser.add_argument("--nodes", type=int, default=1)
     parser.add_argument("--ngpus_per_node", type=int, default=1)
     parser.add_argument("--local_rank", type=int, default=0)
+    return parser
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
     args = parser.parse_args(argv)
 
     if not (args.train or args.detect or args.preprocess):
@@ -110,13 +120,13 @@ def main(argv=None) -> int:
             file=sys.stderr,
         )
         return 2
-    if args.device is None:
-        parser.error("--train and --detect need --device (cuda, cuda:N or cpu)")
+    import torch
 
-    # tspn_tpu's package init would otherwise probe jax for its XLA cache
-    os.environ.setdefault("TSPN_NO_COMPILE_CACHE", "1")
-    from tspn_tpu.config import get_default_config
-    from tspn_tpu.data.segments import set_output_dir
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        parser.error(f"--device {args.device}: no CUDA device is available "
+                     "(pass --device cpu to run on the CPU)")
+    from tspn_tpu_torch.config import get_default_config
+    from tspn_tpu_torch.data.segments import set_output_dir
 
     cfg = get_default_config()
     cfg.merge_from_file(args.config)

@@ -14,7 +14,9 @@ weight init and zero bias, in one of two forms:
   learned module inserted upstream of the classifier would train with
   zero gradient; use ``normalize_classify_fused`` then.
 
-The PPN head raises.
+With ``use_ppn`` the model also holds the PPN pair head
+(models/ppn.py) and returns its ``pair_logits`` (B, N, N) from the
+per-tracklet classeme logits.
 """
 
 from __future__ import annotations
@@ -25,9 +27,8 @@ import torch
 from torch import nn
 
 from tspn_tpu_torch.data.layout import FeatureLayout
+from tspn_tpu_torch.models.ppn import PPNHead
 from tspn_tpu_torch.ops import pairwise as pw
-
-_PPN_TODO = "the PPN head is not ported yet (ROADMAP queue 1, item 3)"
 
 
 class RelationPredictor(nn.Module):
@@ -73,41 +74,66 @@ class RelationPredictor(nn.Module):
 
 class TSPNModel(nn.Module):
     """Forward over a segment batch: feats (B, P, D) -> {"rel_logits"
-    (B, P, num_predicates)}."""
+    (B, P, num_predicates)}, plus, with ``use_ppn``, cls_logits (B, N, C)
+    -> "pair_logits" (B, N, N)."""
 
     def __init__(
         self, num_predicates: int = 132, feature_dim: int = 11070,
         use_ppn: bool = False, fused_classifier: bool = False,
-        inference: bool = False, num_objects: int = 35, device=None,
-        generator: Optional[torch.Generator] = None,
+        inference: bool = False, num_objects: int = 35, ppn_hidden: int = 64,
+        ppn_out: int = 35, device=None, generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if use_ppn:
-            raise NotImplementedError(_PPN_TODO)
         self.classifier = RelationPredictor(
             num_predicates, feature_dim, fused=fused_classifier,
             inference=inference, num_objects=num_objects, device=device,
             generator=generator,
         )
+        self.use_ppn = use_ppn
+        if use_ppn:
+            self.ppn_head = PPNHead(num_objects, ppn_hidden, ppn_out,
+                                    device=device, generator=generator)
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 plain: bool = False) -> Dict[str, torch.Tensor]:
-        return {"rel_logits": self.classifier(batch["feats"], plain=plain)}
+        out = {"rel_logits": self.classifier(batch["feats"], plain=plain)}
+        if self.use_ppn:
+            out["pair_logits"] = self.ppn_head(batch["cls_logits"])
+        return out
 
 
 def build_model(
     num_predicates: int = 132, feature_dim: int = 11070, use_ppn: bool = False,
     fused_classifier: bool = False, inference: bool = False,
-    num_objects: int = 35, device=None, seed: Optional[int] = None,
+    num_objects: int = 35, ppn_hidden: int = 64, ppn_out: int = 35,
+    device=None, seed: Optional[int] = None,
 ) -> TSPNModel:
     """TSPNModel from explicit widths; ``seed`` makes the init
     reproducible. The fused classifier's width is the device layout of
-    ``num_objects`` classeme categories (``feature_dim`` is then unused)."""
+    ``num_objects`` classeme categories (``feature_dim`` is then unused);
+    the PPN head reads ``num_objects``-wide classeme logits."""
     gen = None
     if seed is not None:
         gen = torch.Generator(device=device or "cpu").manual_seed(seed)
     return TSPNModel(
         num_predicates=num_predicates, feature_dim=feature_dim, use_ppn=use_ppn,
         fused_classifier=fused_classifier, inference=inference,
-        num_objects=num_objects, device=device, generator=gen,
+        num_objects=num_objects, ppn_hidden=ppn_hidden, ppn_out=ppn_out,
+        device=device, generator=gen,
+    )
+
+
+def build_model_from_config(cfg, inference: bool = False,
+                            seed: Optional[int] = None) -> TSPNModel:
+    """TSPNModel from a config tree (the JAX package's ``build_model(cfg)``):
+    PREDICT widths, MODEL.FUSED_CLASSIFIER, RELPN.USE_PPN and the PPN
+    widths RELPN.PPN.HIDDEN_CHANNELS / OUT_CHANNELS."""
+    return build_model(
+        num_predicates=cfg.PREDICT.PREDICATE_NUM,
+        feature_dim=cfg.PREDICT.FEATURE_DIM,
+        use_ppn=bool(cfg.RELPN.USE_PPN),
+        fused_classifier=bool(cfg.MODEL.get("FUSED_CLASSIFIER", False)),
+        inference=inference, num_objects=cfg.PREDICT.OBJECT_NUM,
+        ppn_hidden=cfg.RELPN.PPN.HIDDEN_CHANNELS,
+        ppn_out=cfg.RELPN.PPN.OUT_CHANNELS, seed=seed,
     )

@@ -87,6 +87,10 @@ def fused_classify_library() -> ctypes.CDLL:
     return _bound("fused_classify", "tspn_fused_classify_launch", 4, 5)
 
 
+def q8f_fused_library() -> ctypes.CDLL:
+    return _bound("q8f_fused", "tspn_q8f_fused_launch", 8, 5)
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a C entry point."""
     if err != 0:

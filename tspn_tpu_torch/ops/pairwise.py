@@ -14,7 +14,10 @@ Counterpart of ``tspn_tpu/ops/pairwise.py``. Two halves:
   (``csrc/q8s.cu``); ``normalize_classify_fused_forward`` is the f32
   fused L1 normalization + classifier over device-layout rows
   (``csrc/fused_classify.cu``), and ``normalize_classify_fused`` /
-  ``normalize_classify_fused_nofeatgrad`` wrap it in autograd.
+  ``normalize_classify_fused_nofeatgrad`` wrap it in autograd;
+  ``q8f_fused`` is the factored rel pass with the per-tracklet A-table
+  add in its epilogue (``csrc/q8f_fused.cu``), which
+  ``factored_classify_q8_fused`` runs after a q8s tracklet pass.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 from tspn_tpu_torch.data.layout import DEFAULT_LAYOUT, FeatureLayout, round_up
 
 # kernel launches made by the dispatchers on CUDA tensors
-LAUNCHES = {"q8s": 0, "fused_classify": 0}
+LAUNCHES = {"q8s": 0, "fused_classify": 0, "q8f_fused": 0}
 
 
 def reset_launches() -> None:
@@ -573,23 +576,24 @@ def factored_classify_q8_batched(
     wq: dict,                  # qw_trk_t, sw_trk, qw_rel_t, sw_rel tensors
     b: torch.Tensor,
     layout: FeatureLayout = DEFAULT_LAYOUT,
-    q8s=normalize_classify_q8s,
 ) -> torch.Tensor:
-    """Factored scoring of padded segment batches -> (B, P, R) f32:
-    ``y + A_sub[sub] + A_obj[obj]`` with A = the tracklet pass (B, N, 2R)
-    and y = the rel pass plus bias. The JAX package expands A with a
-    one-hot matmul (TPU row gathers scalarize); here it is an index
-    gather, which is exactly equal. Pair indices must lie in [0, N).
-    ``q8s`` is the segmented scorer the two passes run."""
+    """Two-pass factored scoring of padded segment batches -> (B, P, R)
+    f32: ``(y + A_sub[sub]) + A_obj[obj]`` with A = the q8s tracklet pass
+    (B, N, 2R) and y = the q8s rel pass plus bias, the JAX package's
+    ``factored_classify_q8_batched``. The serve path runs
+    ``factored_classify_q8_fused`` instead; this stays as its reference.
+    The JAX package expands A with a one-hot matmul (TPU row gathers
+    scalarize); here it is an index gather, which is exactly equal. Pair
+    indices must lie in [0, N)."""
     bsz, n, _ = trk_q.shape
     p = rel_q.shape[1]
     r = b.shape[0]
-    a = q8s(
+    a = normalize_classify_q8s(
         trk_q.reshape(bsz * n, -1), trk_scales.reshape(bsz * n, -1),
         wq["qw_trk_t"], wq["sw_trk"], torch.zeros_like(wq["sw_trk"]),
         tracklet_geom(layout),
     ).reshape(bsz, n, 2 * r)
-    y = q8s(
+    y = normalize_classify_q8s(
         rel_q.reshape(bsz * p, -1), rel_scales.reshape(bsz * p, -1),
         wq["qw_rel_t"], wq["sw_rel"], b, rel_geom(layout),
     ).reshape(bsz, p, r)
@@ -600,3 +604,121 @@ def factored_classify_q8_batched(
         + torch.gather(a[..., :r], 1, sub)
         + torch.gather(a[..., r:], 1, obj)
     )
+
+
+def factored_classify_q8_fused_plain(
+    rel_q: torch.Tensor,     # (B, P, D) int8 rel rows
+    s: torch.Tensor,         # (B, P) f32 row scale (column 0 of the scales)
+    pairs: torch.Tensor,     # (B, P, 2) int, tracklet index per rel row
+    qw_rel_t: torch.Tensor,  # (R, D) int8, K-major
+    sw: torch.Tensor,        # (R,) f32
+    b: torch.Tensor,         # (R,) f32
+    a: torch.Tensor,         # (B, N, 2R) f32 tracklet pass [A_sub | A_obj]
+) -> torch.Tensor:
+    """Plain version of the q8f_fused kernel: -> (B, P, R) f32
+
+        ((f32(rel_q . qw) * s) * sw + b) + (A[sub, :R] + A[obj, R:])
+
+    rounded in that order, the kernel's. The integer sum is taken in
+    float64, which is exact (|sum| <= 127^2 * D < 2^53), then rounded to
+    f32, so the kernel must equal this bit for bit. A pair index outside
+    [0, N) adds 0 and is never read."""
+    bsz, p, d = rel_q.shape
+    n, r = a.shape[1], b.shape[0]
+    acc = (rel_q.reshape(bsz * p, d).to(torch.float64)
+           @ qw_rel_t.to(torch.float64).T).to(torch.float32).reshape(bsz, p, r)
+    y = acc * s[..., None] * sw + b
+
+    def gather(idx, table):  # (B, P) indices into (B, N, R) -> (B, P, R)
+        idx = idx.long()
+        inside = (idx >= 0) & (idx < n)
+        rows = torch.gather(
+            table, 1, torch.where(inside, idx, 0)[..., None].expand(bsz, p, r)
+        )
+        return torch.where(inside[..., None], rows, torch.zeros_like(rows))
+
+    return y + (gather(pairs[..., 0], a[..., :r]) + gather(pairs[..., 1], a[..., r:]))
+
+
+def _q8f_fused_cuda(rel_q, s, pairs, qw_rel_t, sw, b, a) -> torch.Tensor:
+    from tspn_tpu_torch.ops import _cuda
+
+    bsz, p, d = rel_q.shape
+    r = qw_rel_t.shape[0]
+    n = a.shape[1]
+    tensors = (rel_q, s, pairs, qw_rel_t, sw, b, a)
+    if any(t.device != rel_q.device for t in tensors):
+        raise ValueError("q8f_fused: all operands must be on one device")
+    if rel_q.dtype != torch.int8 or qw_rel_t.dtype != torch.int8:
+        raise TypeError("q8f_fused: rel_q and qw_rel_t must be int8")
+    if pairs.dtype != torch.int32:
+        raise TypeError("q8f_fused: pairs must be int32")
+    if any(t.dtype != torch.float32 for t in (s, sw, b, a)):
+        raise TypeError("q8f_fused: s, sw, b and a must be float32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("q8f_fused: operands must be contiguous")
+    if (qw_rel_t.shape != (r, d) or s.shape != (bsz, p) or pairs.shape != (bsz, p, 2)
+            or sw.shape != (r,) or b.shape != (r,) or a.shape != (bsz, n, 2 * r)):
+        raise ValueError(
+            f"q8f_fused: bad shapes rel_q {tuple(rel_q.shape)} s {tuple(s.shape)} "
+            f"pairs {tuple(pairs.shape)} qw_rel_t {tuple(qw_rel_t.shape)} "
+            f"sw {tuple(sw.shape)} b {tuple(b.shape)} a {tuple(a.shape)}"
+        )
+    if d % 128:
+        raise ValueError(f"q8f_fused: width {d} is not a multiple of 128")
+    if rel_q.data_ptr() % 16 or qw_rel_t.data_ptr() % 16:
+        raise ValueError("q8f_fused: rel_q and qw_rel_t must be 16-byte aligned")
+    out = torch.empty((bsz, p, r), dtype=torch.float32, device=rel_q.device)
+    if bsz * p == 0:
+        return out
+    lib = _cuda.q8f_fused_library()
+    with torch.cuda.device(rel_q.device):
+        stream = torch.cuda.current_stream(rel_q.device).cuda_stream
+        err = lib.tspn_q8f_fused_launch(
+            rel_q.data_ptr(), s.data_ptr(), pairs.data_ptr(), qw_rel_t.data_ptr(),
+            sw.data_ptr(), b.data_ptr(), a.data_ptr(), out.data_ptr(),
+            bsz * p, p, n, r, d, ctypes.c_void_p(stream),
+        )
+    _cuda.check(err, "tspn_q8f_fused_launch")
+    LAUNCHES["q8f_fused"] += 1
+    return out
+
+
+def q8f_fused(rel_q, s, pairs, qw_rel_t, sw, b, a) -> torch.Tensor:
+    """Factored rel pass with the A-table add, (B, P, D) int8 -> (B, P, R)
+    f32: the kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if rel_q.device.type == "cuda":
+        return _q8f_fused_cuda(rel_q, s, pairs, qw_rel_t, sw, b, a)
+    if rel_q.device.type == "cpu":
+        return factored_classify_q8_fused_plain(rel_q, s, pairs, qw_rel_t, sw, b, a)
+    raise ValueError(f"q8f_fused: no implementation for device {rel_q.device}")
+
+
+def factored_classify_q8_fused(
+    trk_q: torch.Tensor,       # (B, N, trk_dim) int8
+    trk_scales: torch.Tensor,  # (B, N, 16) f32
+    rel_q: torch.Tensor,       # (B, P, rel_pad) int8
+    rel_scales: torch.Tensor,  # (B, P, 16) f32
+    pairs: torch.Tensor,       # (B, P, 2) int32, arbitrary pair indices
+    wq: dict,                  # qw_trk_t, sw_trk, qw_rel_t, sw_rel tensors
+    b: torch.Tensor,
+    layout: FeatureLayout = DEFAULT_LAYOUT,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Factored scoring of padded segment batches -> (B, P, R) f32, the
+    math of ``factored_classify_q8_batched`` in two launches: the q8s
+    tracklet pass gives the A table (B, N, 2R), then one q8f_fused launch
+    scores the rel rows and adds A_sub[sub] + A_obj[obj] in its epilogue,
+    so the (P, R) rel logits never round-trip through device memory.
+    ``plain=True`` runs both passes' plain versions on any device."""
+    bsz, n, _ = trk_q.shape
+    r = b.shape[0]
+    q8s = normalize_classify_q8s_plain if plain else normalize_classify_q8s
+    a = q8s(
+        trk_q.reshape(bsz * n, -1), trk_scales.reshape(bsz * n, -1),
+        wq["qw_trk_t"], wq["sw_trk"], torch.zeros_like(wq["sw_trk"]),
+        tracklet_geom(layout),
+    ).reshape(bsz, n, 2 * r)
+    rel = factored_classify_q8_fused_plain if plain else q8f_fused
+    return rel(rel_q, rel_scales[..., 0].contiguous(), pairs, wq["qw_rel_t"],
+               wq["sw_rel"], b, a)

@@ -4,9 +4,12 @@ The JAX package jits loss, gradients and the optimizer update into one
 program, sharded over a device mesh. Here the step runs eagerly on one
 device: forward, masked BCE, backward, optimizer step, schedule step.
 
-Loss (train_step.py:49-74): per-segment BCE with logits averaged over
-that segment's real pair x predicate cells, then averaged over segments,
-in f32. The PPN loss is not ported and raises.
+Losses (train_step.py:49-70), in f32:
+* ``loss_rel``: per-segment BCE with logits averaged over that segment's
+  real pair x predicate cells, then averaged over segments;
+* ``loss_pair`` (model with the PPN head): per-segment masked BCE of the
+  pair logits against the binary GT pair matrix over the real-tracklet
+  N x N cells, diagonal included, averaged over segments.
 """
 
 from __future__ import annotations
@@ -16,8 +19,15 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from tspn_tpu_torch.models.ppn import gt_pair_matrix, ppn_loss
+
 # batch leaves the step reads; nothing else is copied to the device
 TRAIN_KEYS = ("feats", "labels", "pair_mask")
+PPN_TRAIN_KEYS = TRAIN_KEYS + ("pairs", "cls_logits", "track_mask")
+
+
+def train_keys(model) -> tuple:
+    return PPN_TRAIN_KEYS if getattr(model, "use_ppn", False) else TRAIN_KEYS
 
 
 def batch_to_device(batch: dict, device, keys=TRAIN_KEYS) -> Dict[str, torch.Tensor]:
@@ -27,8 +37,6 @@ def batch_to_device(batch: dict, device, keys=TRAIN_KEYS) -> Dict[str, torch.Ten
 def compute_losses(model, batch: Dict[str, torch.Tensor],
                    plain: bool = False) -> Dict[str, torch.Tensor]:
     out = model(batch, plain=plain)
-    if "pair_logits" in out:
-        raise NotImplementedError("the PPN loss is not ported yet (ROADMAP queue 1)")
     labels = batch["labels"]
     bce = F.binary_cross_entropy_with_logits(
         out["rel_logits"].float(), labels, reduction="none"
@@ -37,7 +45,13 @@ def compute_losses(model, batch: Dict[str, torch.Tensor],
     per_seg = (bce * mask[..., None]).sum(dim=(1, 2)) / torch.clamp(
         mask.sum(dim=1) * labels.shape[-1], min=1.0
     )
-    return {"loss_rel": per_seg.mean()}
+    losses = {"loss_rel": per_seg.mean()}
+    if "pair_logits" in out:
+        gts = gt_pair_matrix(batch["pairs"], labels, mask,
+                             out["pair_logits"].shape[-1])
+        losses["loss_pair"] = ppn_loss(out["pair_logits"], gts,
+                                       batch["track_mask"]).mean()
+    return losses
 
 
 def train_step(model, optimizer, scheduler, batch: Dict[str, torch.Tensor],

@@ -69,31 +69,65 @@ def load_jax_checkpoint(path: str) -> dict:
     }
 
 
+# the flax PPNHead's Dense layers, all directly under "ppn_head"
+PPN_LAYERS = ("sub_fc1", "sub_fc2", "obj_fc1", "obj_fc2")
+
+
+def _linear_from_dense(prefix: str, dense: dict) -> Dict[str, torch.Tensor]:
+    """flax Dense keeps its kernel as (in, out); nn.Linear keeps (out, in)."""
+    kernel = np.asarray(dense["kernel"], np.float32)
+    return {
+        f"{prefix}.weight": torch.from_numpy(np.ascontiguousarray(kernel.T)),
+        f"{prefix}.bias": torch.from_numpy(np.array(dense["bias"], np.float32)),
+    }
+
+
 def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
-    """Map the JAX model's param tree (numpy leaves) to TSPNModel's
-    state dict. flax Dense keeps its kernel as (in, out); nn.Linear keeps
-    (out, in), so the kernel is transposed. The fused classifier's
-    ``kernel`` (device_dim, R) and ``bias`` carry over as they are."""
-    if "ppn_head" in params:
-        raise NotImplementedError("PPN head weights: ROADMAP queue 1, item 3")
+    """Map the JAX model's param tree (numpy leaves) to TSPNModel's state
+    dict: the unfused Dense ``rel_predictor`` (kernel transposed), or the
+    fused classifier's ``kernel`` (device_dim, R) and ``bias`` as they
+    are, and the PPN head's four Dense layers when the tree has
+    ``ppn_head``. Any other subtree raises."""
+    unknown = set(params) - {"classifier", "ppn_head"}
+    if unknown:
+        raise NotImplementedError(
+            f"param subtrees {sorted(unknown)} are not ported (span mode: "
+            "ROADMAP queue 1)"
+        )
     cls = params["classifier"]
-    if "rel_predictor" not in cls:
-        return {
+    if "rel_predictor" in cls:
+        out = _linear_from_dense("classifier.rel_predictor", cls["rel_predictor"])
+    else:
+        out = {
             "classifier.kernel": torch.from_numpy(
                 np.array(cls["kernel"], np.float32)
             ),
             "classifier.bias": torch.from_numpy(np.array(cls["bias"], np.float32)),
         }
-    dense = cls["rel_predictor"]
-    kernel = np.asarray(dense["kernel"], np.float32)
-    return {
-        "classifier.rel_predictor.weight": torch.from_numpy(
-            np.ascontiguousarray(kernel.T)
-        ),
-        "classifier.rel_predictor.bias": torch.from_numpy(
-            np.array(dense["bias"], np.float32)
-        ),
-    }
+    if "ppn_head" in params:
+        for name in PPN_LAYERS:
+            out.update(_linear_from_dense(f"ppn_head.{name}",
+                                          params["ppn_head"][name]))
+    return out
+
+
+def jax_params_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``state_dict_from_jax``: TSPNModel's state dict ->
+    the JAX model's param tree with numpy leaves."""
+    sd = {k: v.detach().to("cpu", torch.float32).numpy() for k, v in state_dict.items()}
+
+    def dense(prefix):
+        return {"kernel": np.ascontiguousarray(sd[f"{prefix}.weight"].T),
+                "bias": sd[f"{prefix}.bias"].copy()}
+
+    if "classifier.rel_predictor.weight" in sd:
+        params = {"classifier": {"rel_predictor": dense("classifier.rel_predictor")}}
+    else:
+        params = {"classifier": {"kernel": sd["classifier.kernel"].copy(),
+                                 "bias": sd["classifier.bias"].copy()}}
+    if "ppn_head.sub_fc1.weight" in sd:
+        params["ppn_head"] = {name: dense(f"ppn_head.{name}") for name in PPN_LAYERS}
+    return params
 
 
 def save_checkpoint(path: str, model: torch.nn.Module, step: int = 0,

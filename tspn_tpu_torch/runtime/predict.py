@@ -1,18 +1,27 @@
 """Short-term relation prediction over test segments (segment mode).
 
-Counterpart of tspn_tpu/runtime/predict.py without the PPN-pruned path
-and the device mesh. Per segment batch: score every pair, take a
-two-stage top-k on the device (top TOPK_PER_PAIR predicates per pair,
-then top TOPK_PER_SEG (pair, predicate) entries per segment), read the
-selection back, and assemble triplets on the host. Three scorers, picked
-by the dataset:
+Counterpart of tspn_tpu/runtime/predict.py without the device mesh. Per
+segment batch: score every pair, take a two-stage top-k on the device
+(top TOPK_PER_PAIR predicates per pair, then top TOPK_PER_SEG (pair,
+predicate) entries per segment), read the selection back, and assemble
+triplets on the host. Three scorers, picked by the dataset:
 
-* q8f (factored int8 store): ``factored_classify_q8_batched``, two q8s
-  kernel launches per batch;
+* q8f (factored int8 store): ``factored_classify_q8_fused``, one q8s
+  launch (tracklet pass) and one q8f_fused launch (rel pass with the
+  A-table add) per batch;
 * q8 (expanded int8 rows): one q8s kernel launch per batch;
 * f32 (per-file or f32 store): the model itself, its nn.Linear or, for
   a fused-classifier model built with ``inference=True``, one launch of
   the fused_classify kernel per batch over raw device-layout rows.
+
+PPN pruning (``num_pair_proposals`` > 0, a model with the PPN head; the
+config's RELPN.USE_PPN and PPN.PRUNE_AT_INFERENCE): the head scores every
+pair row from the classeme logits, rows with ``pair_mask == 0`` get
+-inf, and only the top min(K, P) rows of each segment are scored, by the
+same scorer and the same launches; with FUSE_SCORE the relation
+probabilities are multiplied by the pair's PPN probability. The top-k
+then takes the finite rows only and maps its pair indices back through
+the selected rows.
 
 The readback is synchronous: each batch is scored and read back before
 the next is assembled.
@@ -111,23 +120,38 @@ def q8f_classifier_weights(w: np.ndarray, b: np.ndarray, layout: FeatureLayout,
     }
 
 
-def make_q8f_scorer(weights: dict, q8s=pw.normalize_classify_q8s) -> Callable:
+def take_rows(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(B, P, ...) x, (B, K) row indices -> (B, K, ...) selected rows."""
+    idx = rows.reshape(*rows.shape, *([1] * (x.dim() - 2)))
+    return torch.gather(x, 1, idx.expand(*rows.shape, *x.shape[2:]))
+
+
+def make_q8f_scorer(weights: dict, plain: bool = False) -> Callable:
+    """Factored scorer; ``score(batch, rows)`` scores only the rel rows
+    ``rows`` (B, K) of each segment, as the kernel takes arbitrary pair
+    lists."""
     wq, b, layout = weights["wq"], weights["b"], weights["layout"]
 
-    def score(batch):
-        return pw.factored_classify_q8_batched(
-            batch["trk_feats"], batch["trk_scales"], batch["feats"],
-            batch["feat_scale"], batch["pairs"], wq, b, layout=layout, q8s=q8s,
+    def score(batch, rows=None):
+        rel_q, scales, pairs = batch["feats"], batch["feat_scale"], batch["pairs"]
+        if rows is not None:
+            rel_q, scales, pairs = (take_rows(t, rows) for t in (rel_q, scales, pairs))
+        return pw.factored_classify_q8_fused(
+            batch["trk_feats"], batch["trk_scales"], rel_q, scales, pairs, wq, b,
+            layout=layout, plain=plain,
         )
 
     return score
 
 
-def make_q8_scorer(weights: dict, q8s=pw.normalize_classify_q8s) -> Callable:
+def make_q8_scorer(weights: dict, plain: bool = False) -> Callable:
     geom = weights["layout"]
+    q8s = pw.normalize_classify_q8s_plain if plain else pw.normalize_classify_q8s
 
-    def score(batch):
+    def score(batch, rows=None):
         feats, scales = batch["feats"], batch["feat_scale"]
+        if rows is not None:
+            feats, scales = take_rows(feats, rows), take_rows(scales, rows)
         lead = feats.shape[:-1]
         out = q8s(
             feats.reshape(-1, feats.shape[-1]), scales.reshape(-1, 16),
@@ -139,10 +163,37 @@ def make_q8_scorer(weights: dict, q8s=pw.normalize_classify_q8s) -> Callable:
 
 
 def make_f32_scorer(model, plain: bool = False) -> Callable:
-    def score(batch):
-        return model(batch, plain=plain)["rel_logits"]
+    def score(batch, rows=None):
+        feats = batch["feats"] if rows is None else take_rows(batch["feats"], rows)
+        return model.classifier(feats, plain=plain)
 
     return score
+
+
+def rank_pairs(pair_logits: torch.Tensor, pairs: torch.Tensor,
+               pair_mask: torch.Tensor, num_pair_proposals: int):
+    """PPN pruning: (B, N, N) pair logits, (B, P, 2) pairs, (B, P) mask ->
+    (top_rows (B, K), keep (B, K) f32, sigmoid of the top logits (B, K))
+    with K = min(num_pair_proposals, P); masked rows score -inf, and
+    ``keep`` is 0 exactly where a selected row's logit is not finite."""
+    bsz, n, _ = pair_logits.shape
+    flat = pairs[..., 0].long() * n + pairs[..., 1].long()
+    row_logits = torch.gather(pair_logits.reshape(bsz, n * n), 1, flat)
+    masked = torch.where(pair_mask > 0, row_logits,
+                         torch.full_like(row_logits, -float("inf")))
+    k = min(num_pair_proposals, masked.shape[1])
+    top_logits, top_rows = torch.topk(masked, k, dim=-1)
+    keep = torch.isfinite(top_logits).to(torch.float32)
+    return top_rows, keep, torch.sigmoid(top_logits)
+
+
+def prune_settings(cfg) -> Tuple[int, bool]:
+    """(num_pair_proposals, fuse_ppn_score) from the config: pruning is
+    on under RELPN.USE_PPN and RELPN.PPN.PRUNE_AT_INFERENCE."""
+    ppn = cfg.RELPN.PPN
+    prune = bool(cfg.RELPN.USE_PPN) and bool(ppn.get("PRUNE_AT_INFERENCE", False))
+    return (int(ppn.NUM_PAIR_PROPOSALS) if prune else 0,
+            bool(ppn.get("FUSE_SCORE", False)))
 
 
 # batch leaves each scorer reads; nothing else is copied to the device
@@ -151,6 +202,8 @@ _KEYS = {
     "q8": ("feats", "feat_scale", "pair_mask"),
     "f32": ("feats", "pair_mask"),
 }
+# and what the PPN-pruned path reads besides
+_PRUNE_KEYS = ("cls_logits", "pairs")
 
 
 def dataset_mode(dataset) -> str:
@@ -162,32 +215,46 @@ def dataset_mode(dataset) -> str:
 
 
 def build_infer(model, mode: str, layout: FeatureLayout, topk_per_pair: int,
-                topk_per_seg: int, device, plain: bool = False) -> Callable:
+                topk_per_seg: int, device, plain: bool = False,
+                num_pair_proposals: int = 0, fuse_ppn_score: bool = False) -> Callable:
     """-> infer(batch of numpy leaves) -> (scores, pair_idx, pred_idx,
     valid) numpy arrays, each (B, K). ``plain=True`` scores with the plain
-    PyTorch version of every kernel, on any device."""
+    PyTorch version of every kernel, on any device. ``num_pair_proposals``
+    > 0 prunes with the model's PPN head (see the module docstring)."""
     device = torch.device(device)
-    q8s = pw.normalize_classify_q8s_plain if plain else pw.normalize_classify_q8s
+    if num_pair_proposals > 0 and not getattr(model, "use_ppn", False):
+        raise ValueError("PPN pruning needs a model built with the PPN head")
     if mode == "f32":
         score = make_f32_scorer(model, plain)
     else:
         w, b = classifier_weights(model)
         if mode == "q8f":
-            score = make_q8f_scorer(
-                q8f_classifier_weights(w, b, layout, device), q8s
-            )
+            score = make_q8f_scorer(q8f_classifier_weights(w, b, layout, device), plain)
         else:
-            score = make_q8_scorer(
-                q8_classifier_weights(w, b, layout, device), q8s
-            )
+            score = make_q8_scorer(q8_classifier_weights(w, b, layout, device), plain)
     keys = _KEYS[mode]
+    if num_pair_proposals > 0:
+        keys = tuple(dict.fromkeys(keys + _PRUNE_KEYS))
 
     @torch.no_grad()
     def infer(batch):
         dev = {k: torch.from_numpy(batch[k]).to(device) for k in keys}
-        rel_prob = torch.sigmoid(score(dev))
-        out = select_topk(rel_prob, dev["pair_mask"], topk_per_pair, topk_per_seg)
-        return tuple(t.cpu().numpy() for t in out)
+        if num_pair_proposals <= 0:
+            rel_prob = torch.sigmoid(score(dev))
+            out = select_topk(rel_prob, dev["pair_mask"], topk_per_pair, topk_per_seg)
+            return tuple(t.cpu().numpy() for t in out)
+        pair_logits = model.ppn_head(dev["cls_logits"])
+        top_rows, keep, ppn_scores = rank_pairs(
+            pair_logits, dev["pairs"], dev["pair_mask"], num_pair_proposals
+        )
+        rel_prob = torch.sigmoid(score(dev, top_rows))
+        if fuse_ppn_score:
+            rel_prob = rel_prob * ppn_scores[..., None]
+        scores, pair_idx, pred_idx, valid = select_topk(
+            rel_prob, keep, topk_per_pair, topk_per_seg
+        )
+        pair_idx = torch.gather(top_rows, 1, pair_idx.long()).to(torch.int32)
+        return tuple(t.cpu().numpy() for t in (scores, pair_idx, pred_idx, valid))
 
     return infer
 
@@ -196,15 +263,17 @@ def predict_segments(
     model, dataset, *, device, buckets: Sequence[int] = (8, 16, 24, 32),
     batch_size: int = 1, topk_per_pair: int = 20, topk_per_seg: int = 200,
     num_objects: int = 35, feature_dim: int = None, logger=None,
-    plain: bool = False,
+    plain: bool = False, num_pair_proposals: int = 0,
+    fuse_ppn_score: bool = False,
 ) -> Dict[Tuple[str, int, int], tuple]:
     """Relation prediction over every segment of ``dataset`` (a per-file
     SegmentDataset, a consolidated store, or in-memory records); the
-    store's mode (q8f, q8, f32) picks the scorer. The f32 scorer runs
-    ``model`` itself, which must then be on ``device``; the int8 scorers
-    quantize its weights onto ``device``. Segments with at most one
-    proposal yield no entry. -> {(vid, fstart, fend): (predictions, iou,
-    trackid)}."""
+    store's mode (q8f, q8, f32) picks the scorer. The f32 scorer and the
+    PPN head run ``model`` itself, which must then be on ``device``; the
+    int8 scorers quantize its weights onto ``device``.
+    ``num_pair_proposals`` > 0 scores only each segment's top PPN pairs.
+    Segments with at most one proposal yield no entry. -> {(vid, fstart,
+    fend): (predictions, iou, trackid)}."""
     mode = dataset_mode(dataset)
     layout = FeatureLayout.for_objects(num_objects)
     if feature_dim is None:
@@ -217,7 +286,8 @@ def predict_segments(
         feature_dim=feature_dim, num_objects=num_objects,
     )
     infer = build_infer(model, mode, layout, topk_per_pair, topk_per_seg,
-                        device, plain=plain)
+                        device, plain=plain, num_pair_proposals=num_pair_proposals,
+                        fuse_ppn_score=fuse_ppn_score)
 
     short_term_relations: Dict[Tuple[str, int, int], tuple] = {}
     seen = set()
@@ -257,20 +327,21 @@ def predict_segments(
 
 def predict(cfg, basedata, device, logger=None):
     """Checkpoint-loading entry point (counterpart of the JAX package's
-    ``predict``): reads the test split through the JAX package's dataset
-    readers (imported here, not at module import: they need h5py) and
-    scores it on ``device``."""
-    from tspn_tpu.data.segments import get_model_path
-    from tspn_tpu.data.vrdataset import effective_feature_dim
-    from tspn_tpu_torch.models.tspn import build_model
+    ``predict``): reads the test split through the port's dataset readers
+    (they import h5py where they read) and scores it on ``device``, PPN-
+    pruned when the config asks for it (``prune_settings``)."""
+    from tspn_tpu_torch.data.segments import get_model_path
+    from tspn_tpu_torch.data.vrdataset import effective_feature_dim
+    from tspn_tpu_torch.models.tspn import build_model_from_config
     from tspn_tpu_torch.runtime.checkpoint import load_checkpoint
 
-    if cfg.RELPN.USE_PPN:
-        raise NotImplementedError("PPN: ROADMAP queue 1, item 3")
     phase = basedata.infer_test_split()
     mode = str(cfg.PREDICT.get("CONSOLIDATED", "") or "")
     if mode:
-        from tspn_tpu.data.preprocess import ConsolidatedSegmentDataset, consolidated_path
+        from tspn_tpu_torch.data.preprocess import (
+            ConsolidatedSegmentDataset,
+            consolidated_path,
+        )
 
         path = consolidated_path(phase)
         if not os.path.exists(path):
@@ -285,7 +356,7 @@ def predict(cfg, basedata, device, logger=None):
                 f"as {dataset.store.mode!r}"
             )
     else:
-        from tspn_tpu.data.vrdataset import SegmentDataset
+        from tspn_tpu_torch.data.vrdataset import SegmentDataset
 
         if cfg.MODEL.get("DTYPE", "float32") != "float32":
             raise NotImplementedError("the f32 scorer runs in float32 only")
@@ -293,12 +364,8 @@ def predict(cfg, basedata, device, logger=None):
     if len(dataset) == 0:
         raise ValueError("no test segments with cached features found")
 
-    fused = bool(cfg.MODEL.get("FUSED_CLASSIFIER", False))
-    model = build_model(
-        num_predicates=cfg.PREDICT.PREDICATE_NUM,
-        feature_dim=cfg.PREDICT.FEATURE_DIM, fused_classifier=fused,
-        inference=True, num_objects=cfg.PREDICT.OBJECT_NUM,
-    )
+    model = build_model_from_config(cfg, inference=True)
+    num_pair_proposals, fuse_ppn_score = prune_settings(cfg)
     ckpt = os.path.join(get_model_path(), cfg.ETC.MODEL_DUMP_FILE)
     restored = load_checkpoint(ckpt)
     model.load_state_dict(restored["state_dict"])
@@ -314,5 +381,6 @@ def predict(cfg, basedata, device, logger=None):
         topk_per_seg=cfg.PREDICT.TOPK_PER_SEG,
         num_objects=cfg.PREDICT.OBJECT_NUM,
         feature_dim=None if mode else effective_feature_dim(cfg),
-        logger=logger,
+        logger=logger, num_pair_proposals=num_pair_proposals,
+        fuse_ppn_score=fuse_ppn_score,
     )

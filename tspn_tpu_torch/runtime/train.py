@@ -6,10 +6,10 @@ with each step's loss when it is selected, and periodic checkpoints
 through a callback. It reads only what the loader contract asks of the
 dataset, so it trains from in-memory segments as well as from the
 artifacts. ``train`` is the CLI entry: it reads the train split through
-the JAX package's dataset readers (imported inside the function: they
-need h5py), builds the model, resumes from the port's own latest
-checkpoint when asked, and saves ``<name>_weights_iter_<N>.pt`` as the
-JAX package does.
+the port's dataset readers (data/vrdataset.py, data/preprocess.py; they
+import h5py where they read), builds the model (with the PPN head under
+``RELPN.USE_PPN``), resumes from the port's own latest checkpoint when
+asked, and saves ``<name>_weights_iter_<N>.pt`` as the JAX package does.
 
 Deviations from the JAX loop: no device mesh (the step batch is
 SEGMENTS_PER_STEP segments), and the plateau state is checkpointed and
@@ -21,12 +21,12 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from tspn_tpu_torch.data.loader import BucketedLoader
-from tspn_tpu_torch.parallel.train_step import batch_to_device, train_step
+from tspn_tpu_torch.parallel.train_step import batch_to_device, train_keys, train_step
 from tspn_tpu_torch.solver.optim import ReduceOnPlateauState, build_optimizer
 
 
@@ -37,6 +37,8 @@ class TrainResult:
     seconds: float                 # host wall time of the loop, synchronized
     plateau: Optional[ReduceOnPlateauState]
     model: torch.nn.Module = field(repr=False)
+    # per-step value of each loss term (loss_rel, and loss_pair with PPN)
+    loss_terms: Dict[str, List[float]] = field(default_factory=dict)
 
 
 def train_segments(
@@ -77,20 +79,25 @@ def train_segments(
     )
 
     losses: List[torch.Tensor] = []
+    terms: Dict[str, List[torch.Tensor]] = {}
 
     def mean_loss() -> float:
         return float(torch.stack(losses).mean()) if losses else 0.0
 
+    keys = train_keys(model)
     step = start
     sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else None
     t0 = time.perf_counter()
     for it, (_bucket, batch, _indices, _records) in enumerate(loader):
         step = start + it + 1
         metrics = train_step(
-            model, optimizer, scheduler, batch_to_device(batch, device),
+            model, optimizer, scheduler, batch_to_device(batch, device, keys),
             lr_scale=None if plateau is None else plateau.lr_scale, plain=plain,
         )
         losses.append(metrics["loss"])
+        for k, v in metrics.items():
+            if k != "loss":
+                terms.setdefault(k, []).append(v)
         if plateau is not None:
             plateau = plateau.update(float(metrics["loss"]))
         if logger is not None and display_freq and it % display_freq == 0:
@@ -105,9 +112,12 @@ def train_segments(
     seconds = time.perf_counter() - t0
     if save is not None:
         save(max_iter, mean_loss(), optimizer, scheduler, plateau)
+    def host(values):
+        return [float(v) for v in torch.stack(values).cpu()] if values else []
+
     return TrainResult(
-        step=step, losses=[float(v) for v in torch.stack(losses).cpu()] if losses else [],
-        seconds=seconds, plateau=plateau, model=model,
+        step=step, losses=host(losses), seconds=seconds, plateau=plateau,
+        model=model, loss_terms={k: host(v) for k, v in terms.items()},
     )
 
 
@@ -118,18 +128,16 @@ def train(cfg, basedata, device, resume: bool = False, logger=None,
     across with ``state_dict_from_jax``), else from a torch init seeded
     with ETC.RANDOM_SEED. ``--resume`` continues from the latest of the
     port's own checkpoints under the model path."""
-    from tspn_tpu.data.segments import get_model_path
-    from tspn_tpu.data.vrdataset import SegmentDataset, effective_feature_dim
-    from tspn_tpu.runtime.logging_utils import setup_logger
-    from tspn_tpu_torch.models.tspn import build_model
+    from tspn_tpu_torch.data.segments import get_model_path
+    from tspn_tpu_torch.data.vrdataset import SegmentDataset, effective_feature_dim
+    from tspn_tpu_torch.models.tspn import build_model_from_config
     from tspn_tpu_torch.runtime.checkpoint import (
         latest_checkpoint,
         load_training_checkpoint,
         save_checkpoint,
     )
+    from tspn_tpu_torch.runtime.logging_utils import setup_logger
 
-    if cfg.RELPN.USE_PPN:
-        raise NotImplementedError("PPN: ROADMAP queue 1, item 3")
     if cfg.MODEL.get("DTYPE", "float32") != "float32":
         raise NotImplementedError("bf16 training is not ported yet (ROADMAP queue 1)")
     if logger is None:
@@ -138,7 +146,10 @@ def train(cfg, basedata, device, resume: bool = False, logger=None,
 
     dataset = None
     if str(cfg.PREDICT.get("CONSOLIDATED", "") or "") == "f32":
-        from tspn_tpu.data.preprocess import ConsolidatedSegmentDataset, consolidated_path
+        from tspn_tpu_torch.data.preprocess import (
+            ConsolidatedSegmentDataset,
+            consolidated_path,
+        )
 
         for split in ("train", "training"):
             path = consolidated_path(split)
@@ -158,12 +169,7 @@ def train(cfg, basedata, device, resume: bool = False, logger=None,
     if len(dataset) == 0:
         raise ValueError("no train segments with cached features found")
 
-    model = build_model(
-        num_predicates=cfg.PREDICT.PREDICATE_NUM,
-        feature_dim=cfg.PREDICT.FEATURE_DIM,
-        fused_classifier=bool(cfg.MODEL.get("FUSED_CLASSIFIER", False)),
-        num_objects=cfg.PREDICT.OBJECT_NUM, seed=cfg.ETC.RANDOM_SEED,
-    )
+    model = build_model_from_config(cfg, seed=cfg.ETC.RANDOM_SEED)
     if init_state_dict is not None:
         model.load_state_dict(init_state_dict)
     restored = None
