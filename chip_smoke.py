@@ -54,11 +54,30 @@ Phases, in order; any failure raises and the exit code is nonzero:
     equal selections, one profiled run;
 12. train PPN: phase 10 with the PPN head and its loss; loss_rel and
     loss_pair at step 1 agree to rtol 1e-4 and every step to 1e-3, and
-    the last total loss is below the first.
+    the last total loss is below the first;
+13. report the build of the RoIAlign kernel K7
+    (tspn_tpu_torch/csrc/roi_align.cu);
+14. hold K7 against roi_align_plain (run in chunks of 256 RoIs) within
+    |K7 - plain| <= 1e-5 * |plain| + 1e-6 per element: at the detect
+    geometry (8 images of 40 x 40 x 1024, 2048 RoIs, some off the map,
+    out 14, s 2), at a ragged RoI count, and at the boundary boxes of
+    tests/test_roi_align.py at (7, 2) and (4, 1); time both;
+15. detect at full width: Faster R-CNN R101-C4 at DetectionConfig's
+    defaults (35 classes, RPN 1000/256, RoIAlign 14 x 14), seeded init
+    with the cls_score bias of classes 0-2 raised to 3 so that the 0.05
+    score threshold keeps detections; 20 seeded 640 x 640 frames through
+    detect_video_frames in batches of 8 (the last padded), with K7 and
+    with the plain RoIAlign in turns as in phase 5; frames/s the median of
+    two timed runs, one K7 launch per batch, every frame keeping
+    detections; K7 and the plain RoIAlign on the same backbone features
+    give the same detections apart from near-ties; one detect_tta batch
+    and one roi_classeme call (one launch each); one profiled run for the
+    busy share and K7's share of the device time.
 
+Convolutions and matrix products run in full f32 (TF32 off throughout).
 The kernel launches of the main path are counted from zero before each
-main-path phase group and read right after it: phases 5-6, 9-10 and
-11-12. It prints the kernels' JSON line, then as its last line
+main-path phase group and read right after it: phases 5-6, 9-10, 11-12
+and 15. It prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero
 before printing any result.
 """
@@ -102,6 +121,21 @@ PPN_HIDDEN, PPN_OUT, NUM_PAIR_PROPOSALS = 64, 35, 256
 # q8f_fused checks: (name, segments, rows per segment, tracklets N, pairs)
 K2_CASES = (("serve", 16, 992, 32, "canonical"), ("ragged", 7, 333, 19, "random"),
             ("pruned", 16, 256, 32, "random"), ("out_of_range", 16, 256, 32, "outside"))
+# RoIAlign (K7) checks: (name, images, H, W, C, RoIs, out, s, boxes)
+K7_CASES = (("detect", 8, 40, 40, 1024, 2048, 14, 2, "random"),
+            ("ragged", 8, 40, 40, 1024, 2048 - 77, 14, 2, "random"),
+            ("border_7x2", 1, 20, 24, 1024, 8, 7, 2, "border"),
+            ("border_4x1", 1, 20, 24, 1024, 8, 4, 1, "border"))
+# the boundary boxes of tests/test_roi_align.py, in feature coordinates
+BORDER_BOXES = ((2.0, 3.0, 10.0, 12.0), (-3.0, -2.0, 5.0, 6.0), (18.0, 14.0, 30.0, 26.0),
+                (0.0, 0.0, 24.0, 20.0), (5.0, 5.0, 5.0, 5.0), (-4.0, -3.0, 5.0, 6.0),
+                (18.0, 14.0, 28.0, 24.0), (-1.5, -1.0, 0.5, 21.0))
+PLAIN_CHUNK = 256  # RoIs per roi_align_plain call: its (R, 28, W, C) gather
+# the detector: 640 x 640 letterboxed frames in batches of 8
+# (tools/run_pipeline.py and detect_video_frames defaults)
+DET_FRAMES, DET_BATCH, DET_SIZE = 20, 8, 640
+DET_RAISED_CLASSES, DET_RAISED_BIAS = 3, 3.0
+DET_TIE = 1e-5
 # published NVIDIA H100 SXM peaks: HBM3 bytes/s, int8 tensor-core op/s,
 # f32 op/s on the CUDA cores
 PEAK = {"bytes": 3.35e12, "int8": 1979e12, "f32": 67e12}
@@ -371,11 +405,12 @@ def check_output(out: dict, dataset) -> None:
                 raise AssertionError(f"{key}: bad predicate {trip}")
 
 
-def profile_run(fn) -> dict:
+def profile_run(fn, watch: tuple = ()) -> dict:
     """``fn()`` once under torch.profiler: device busy share and the
     largest device-side entries (kernels and copies; the CPU ops that
-    launched them are left out so no time counts twice). A first, empty
-    profile absorbs the tracer's start-up."""
+    launched them are left out so no time counts twice), and the summed
+    device time of the entries whose name holds each string of ``watch``.
+    A first, empty profile absorbs the tracer's start-up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -394,9 +429,13 @@ def profile_run(fn) -> dict:
     ]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     device_ms = sum(ms for _k, ms in rows)
-    return {"wall_s": wall_s, "device_ms": device_ms,
-            "device_busy_share": device_ms / (wall_s * 1e3) if device_ms else None,
-            "top_device_ms": rows[:6]}
+    result = {"wall_s": wall_s, "device_ms": device_ms,
+              "device_busy_share": device_ms / (wall_s * 1e3) if device_ms else None,
+              "top_device_ms": rows[:6]}
+    if watch:
+        result["watched_device_ms"] = {
+            w: sum(ms for k, ms in rows if w in k) for w in watch}
+    return result
 
 
 def phase_serve(label: str, dataset, model, dev, launches_per_batch: dict,
@@ -588,12 +627,282 @@ def phase_train(label: str, dataset, dev, ppn: bool = False) -> dict:
     return report
 
 
+def roi_align_plain_chunked(feats, boxes, batch_idx, output_size, sampling_ratio):
+    """roi_align_plain over PLAIN_CHUNK RoIs at a time (its gather form's
+    (R, out*s, W, C) intermediate is 9.4 GB at 2048 RoIs of a 40-wide,
+    1024-channel map); the signature of FasterRCNN.roi_pool."""
+    from tspn_tpu_torch.ops import roi_align as ra
+
+    return torch.cat([
+        ra.roi_align_plain(feats, boxes[k : k + PLAIN_CHUNK],
+                           batch_idx[k : k + PLAIN_CHUNK], output_size, sampling_ratio)
+        for k in range(0, boxes.shape[0], PLAIN_CHUNK)
+    ])
+
+
+def k7_inputs(gen, n, h, w, c, r, kind, dev):
+    """Channels-last features in [0, 1), boxes in feature coordinates and
+    the image of each box: the boundary boxes on image 0, or r boxes drawn
+    over the map (some hanging off each edge) spread in order over the n
+    images, as a detect batch lays them out."""
+    feats = torch.rand((n, h, w, c), generator=gen, device=dev)
+    if kind == "border":
+        boxes = torch.tensor(BORDER_BOXES, device=dev)
+    else:
+        xy = torch.rand((r, 2), generator=gen, device=dev) * torch.tensor(
+            [w + 8.0, h + 8.0], device=dev) - 4.0
+        wh = torch.rand((r, 2), generator=gen, device=dev) * 30.0 + 0.25
+        boxes = torch.cat([xy, xy + wh], dim=1)
+    batch_idx = (torch.arange(r, device=dev) * n // r).to(torch.int32)
+    return feats, boxes.contiguous(), batch_idx
+
+
+def phase_k7_check(dev) -> dict:
+    """K7 vs roi_align_plain (in chunks) within 1e-5 * |plain| + 1e-6."""
+    from tspn_tpu_torch.ops import roi_align as ra
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    report = {}
+    for name, n, h, w, c, r, out, s, kind in K7_CASES:
+        feats, boxes, idx = k7_inputs(gen, n, h, w, c, r, kind, dev)
+        got = ra.roi_align(feats, boxes, idx, out, s)
+        ref = roi_align_plain_chunked(feats, boxes, idx, out, s)
+        torch.cuda.synchronize()
+        if got.shape != (r, out, out, c) or not torch.isfinite(got).all():
+            raise AssertionError(f"roi_align {name}: bad output {tuple(got.shape)}")
+        err = (got - ref).abs()
+        worst = float((err / (1e-5 * ref.abs() + 1e-6)).max())
+        max_err = float(err.max())
+        del err, ref
+        if worst > 1.0:
+            raise AssertionError(f"roi_align {name}: |K7 - plain| exceeds the bound "
+                                 f"(max err {max_err}, worst err/bound {worst})")
+        ms = cuda_median_ms(lambda: ra.roi_align(feats, boxes, idx, out, s))
+        plain_ms = cuda_median_ms(
+            lambda: roi_align_plain_chunked(feats, boxes, idx, out, s), iters=3)
+        # per output float: s*s samples of 6 mul + 3 add, s*s sums, 1 divide
+        ops = (10.0 * s * s + 1.0) * got.numel()
+        report[name] = {"images": n, "map": [h, w, c], "rois": r, "out": out,
+                        "sampling_ratio": s, "max_abs_err": max_err,
+                        "worst_err_over_bound": worst, "ms": ms, "plain_ms": plain_ms,
+                        **bound((feats, boxes, idx), got, ops, "f32")}
+        log(f"roi_align {name}: {n} x {h}x{w}x{c}, {r} RoIs, out {out}, s {s}: "
+            f"max|err| {max_err:.3e} (worst err/bound {worst:.3f}) kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms bound {report[name]['bound_ms']:.4f} ms "
+            f"({report[name]['bound_by']}, {report[name]['bytes'] / 1e9:.3f} GB)")
+        del feats, boxes, idx, got
+    return report
+
+
+def seeded_detector(dev):
+    """Faster R-CNN R101-C4 at DetectionConfig's defaults with the flax-like
+    seeded init; the cls_score bias of classes 0..2 is raised to 3, so
+    those classes score about 0.2 against the 0.05 threshold (a seeded
+    init alone scores every class near 1/36 and keeps nothing)."""
+    from tspn_tpu_torch.detection.rcnn import DetectionConfig, FasterRCNN
+
+    model = FasterRCNN(DetectionConfig(), generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        model.cls_score.bias[:DET_RAISED_CLASSES] = DET_RAISED_BIAS
+    return model.to(dev).to(memory_format=torch.channels_last).eval()
+
+
+def synthetic_frames(n: int, seed: int):
+    """(n, 640, 640, 3) float32 frames in [0, 1]: dim noise with six flat
+    coloured rectangles each."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    frames = (rng.rand(n, DET_SIZE, DET_SIZE, 3) * 0.25).astype(np.float32)
+    for t in range(n):
+        for _ in range(6):
+            y0, x0 = rng.randint(0, DET_SIZE - 64, 2)
+            hh, ww = rng.randint(32, 320, 2)
+            frames[t, y0 : y0 + hh, x0 : x0 + ww] = rng.rand(3)
+    return frames
+
+
+def check_detections(dets: dict, n: int, num_classes: int) -> int:
+    """Fixed-size detections of n frames: every frame keeps some; kept
+    boxes are finite and inside the frame, classes in range, scores in
+    (0.05, 1]; dropped slots score 0. -> the number kept."""
+    mask = torch.as_tensor(dets["mask"]).bool()
+    boxes = torch.as_tensor(dets["boxes"])
+    scores = torch.as_tensor(dets["scores"])
+    classes = torch.as_tensor(dets["classes"])
+    if mask.shape[0] != n or not bool(mask.any(dim=1).all()):
+        raise AssertionError(f"frames without detections: {(~mask.any(dim=1)).sum()} of {n}")
+    kb = boxes[mask]
+    if not (torch.isfinite(kb).all() and kb.min() >= 0 and kb.max() <= DET_SIZE):
+        raise AssertionError("detected boxes outside the frame")
+    ks, kc = scores[mask], classes[mask]
+    if not ((ks > 0.05).all() and (ks <= 1).all() and (kc >= 0).all()
+            and (kc < num_classes).all() and not scores[~mask].any()):
+        raise AssertionError("bad detection scores or classes")
+    return int(mask.sum())
+
+
+def same_detections_but_ties(kernel: dict, plain: dict) -> int:
+    """Per image, slot by slot: the same class, box (atol 1e-3 px) and score
+    (within DET_TIE); a slot may differ only where the plain score lies
+    within DET_TIE of a neighbour's and the kernel's slot scores within
+    DET_TIE of it (a near-tie broken the other way). -> such slots."""
+    if not torch.equal(kernel["mask"], plain["mask"]):
+        raise AssertionError("K7 and plain keep different numbers of detections")
+    swapped = 0
+    for b in range(plain["mask"].shape[0]):
+        kept = torch.nonzero(plain["mask"][b])[:, 0]
+        ps = plain["scores"][b]
+        for k in kept.tolist():
+            close = abs(float(kernel["scores"][b, k] - ps[k])) <= DET_TIE
+            if (close and int(kernel["classes"][b, k]) == int(plain["classes"][b, k])
+                    and torch.allclose(kernel["boxes"][b, k], plain["boxes"][b, k],
+                                       rtol=1e-5, atol=1e-3)):
+                continue
+            gap = float((ps[kept] - ps[k]).abs().sort().values[1])
+            if not (close and gap <= DET_TIE):
+                raise AssertionError(f"image {b} slot {k}: K7 and plain differ")
+            swapped += 1
+    return swapped
+
+
+def detect_stage_seconds(model, frames, dev) -> dict:
+    """One detect_video_frames pass with host-clock timers (synchronized
+    before and after) around the backbone, the RPN's NMS, RoIAlign, the
+    res5 head and the final class-aware NMS; -> seconds per stage, their
+    call counts, and the pass's wall time."""
+    from tspn_tpu_torch.detection import rcnn, rpn
+    from tspn_tpu_torch.pipeline import detect_video_frames
+
+    spent = {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            sec, calls = spent.get(name, (0.0, 0))
+            spent[name] = (sec + time.perf_counter() - t0, calls + 1)
+            return out
+        return wrapper
+
+    saved = (model.features, model.roi_pool, rpn.nms, rcnn.nms)
+    model.features = timed("backbone", model.features)
+    model.roi_pool = timed("roi_align", model.roi_pool)
+    model.res5.forward = timed("res5", model.res5.forward)
+    rpn.nms = timed("rpn_nms", rpn.nms)
+    rcnn.nms = timed("detect_nms", rcnn.nms)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        detect_video_frames(model, frames, device=dev, batch_size=DET_BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        model.features, model.roi_pool, rpn.nms, rcnn.nms = saved
+        del model.features, model.res5.forward  # back to the class's methods
+    return {"wall_s": wall, **{k: {"s": v[0], "calls": v[1]} for k, v in spent.items()}}
+
+
+def phase_detect(dev) -> dict:
+    """Detector inference at full width through detect_video_frames, with
+    K7 and with the plain RoIAlign in turns; the K7-vs-plain detections on
+    shared features; one TTA batch, one classeme call, one profiled run."""
+    from tspn_tpu_torch.ops import roi_align as ra
+    from tspn_tpu_torch.pipeline import detect_video_frames
+
+    t0 = time.perf_counter()
+    model = seeded_detector(dev)
+    frames = synthetic_frames(DET_FRAMES, SEED)
+    setup_s = time.perf_counter() - t0
+    cfg = model.cfg
+    n_batches = -(-DET_FRAMES // DET_BATCH)
+    log(f"detect: R{cfg.depth}-C4, {cfg.num_classes} classes, {DET_FRAMES} frames of "
+        f"{DET_SIZE}x{DET_SIZE}, batch {DET_BATCH} ({n_batches} batches); model and "
+        f"frames made in {setup_s:.1f} s")
+
+    def run(variant: str):
+        model.roi_pool = ra.roi_align if variant == "kernel" else roi_align_plain_chunked
+        before = ra.LAUNCHES["roi_align"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = detect_video_frames(model, frames, device=dev, batch_size=DET_BATCH)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        model.roi_pool = ra.roi_align
+        launched = ra.LAUNCHES["roi_align"] - before
+        want = n_batches if variant == "kernel" else 0
+        if launched != want:
+            raise AssertionError(f"detect {variant}: {launched} roi_align launches, "
+                                 f"want {want}")
+        return dets, seconds
+
+    for variant in ("plain", "kernel"):  # warm-up, untimed
+        run(variant)
+    runs = {"plain": [], "kernel": []}
+    kept = None
+    for variant in ("plain", "kernel", "kernel", "plain"):
+        dets, seconds = run(variant)
+        kept = check_detections(dets, DET_FRAMES, cfg.num_classes)
+        runs[variant].append(DET_FRAMES / seconds)
+
+    images = torch.as_tensor(frames[:DET_BATCH], device=dev)
+    with torch.no_grad():
+        feats = model.features(images)
+        kernel = model.detect_from_features(feats, (DET_SIZE, DET_SIZE))
+        model.roi_pool = roi_align_plain_chunked
+        try:
+            plain = model.detect_from_features(feats, (DET_SIZE, DET_SIZE))
+        finally:
+            model.roi_pool = ra.roi_align
+        ties = same_detections_but_ties(kernel, plain)
+        tta = model.detect_tta(images)
+        tta_kept = check_detections(tta, DET_BATCH, cfg.num_classes)
+        classeme = model.roi_classeme(images, kernel["boxes"])
+    torch.cuda.synchronize()
+    if classeme.shape != (DET_BATCH, cfg.max_detections, cfg.num_classes + 1) or not bool(
+            torch.isfinite(classeme).all()):
+        raise AssertionError(f"roi_classeme: bad output {tuple(classeme.shape)}")
+    del feats, classeme
+    prof = profile_run(
+        lambda: detect_video_frames(model, frames, device=dev, batch_size=DET_BATCH),
+        watch=("roi_align",))
+    k7_ms = prof["watched_device_ms"]["roi_align"]
+    stages = detect_stage_seconds(model, frames, dev)
+    timed_s = DET_FRAMES / statistics.median(runs["kernel"])
+    result = {"frames": DET_FRAMES, "batch": DET_BATCH, "size": DET_SIZE,
+              "batches": n_batches, "kept_detections": kept,
+              "tta_kept_detections": tta_kept, "near_ties_excluded": ties,
+              "frames_per_s": statistics.median(runs["kernel"]),
+              "plain_frames_per_s": statistics.median(runs["plain"]), "runs": runs,
+              "k7_device_ms": k7_ms,
+              "k7_share_of_device": k7_ms / prof["device_ms"] if prof["device_ms"] else None,
+              # the profiler slows the host's launches; the device time over
+              # an unprofiled pass's wall is the nearer busy share
+              "device_busy_share_unprofiled": prof["device_ms"] / (timed_s * 1e3),
+              "stage_seconds": stages,
+              "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+              "profile": prof,
+              # warm-up, two timed kernel runs, the profiled and the stage-timed
+              # run: one launch per batch each; the shared-features detect,
+              # TTA and classeme once
+              "want_launches": 5 * n_batches + 3}
+    log(f"detect: {kept} detections kept over {DET_FRAMES} frames, every frame "
+        f"keeps some; K7 and plain on shared features equal apart from {ties} "
+        f"near-tie slots; TTA keeps {tta_kept}; frames/s kernel {runs['kernel']} "
+        f"plain {runs['plain']}")
+    log(f"detect profile: {json.dumps(prof)}")
+    log(f"detect stages (host clock, synchronized): {json.dumps(stages)}")
+    return result
+
+
 def build_kernels() -> None:
-    """The three kernels' nvcc builds, one per source, started together."""
+    """The four kernels' nvcc builds, one per source, started together."""
     from tspn_tpu_torch.ops import _cuda
 
     libraries = (_cuda.q8s_library, _cuda.q8f_fused_library,
-                 _cuda.fused_classify_library)
+                 _cuda.fused_classify_library, _cuda.roi_align_library)
     with ThreadPoolExecutor(len(libraries)) as pool:
         for f in [pool.submit(lib) for lib in libraries]:
             f.result()
@@ -613,10 +922,12 @@ def main_path(name: str, fn):
     """Drive one group of main-path phases with every launch count set to
     0 just before and read just after -> (fn's result, counts)."""
     from tspn_tpu_torch.ops import pairwise as pw
+    from tspn_tpu_torch.ops import roi_align as ra
 
     pw.reset_launches()
+    ra.reset_launches()
     result = fn()
-    counts = dict(pw.LAUNCHES)
+    counts = {**pw.LAUNCHES, **ra.LAUNCHES}
     log(f"main path {name}: launches {counts}")
     return result, counts
 
@@ -625,8 +936,10 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  checks: dict, timed: str) -> dict:
     """One entry of the kernels line: the largest error over the checked
     geometries, and the times and bound at the geometry ``timed``. No
-    single PyTorch call computes any of the three kernels' functions, so
-    there is no library time."""
+    single PyTorch call computes any of the four kernels' functions, so
+    there is no library time (for RoIAlign, ``F.grid_sample``'s zero
+    padding splits the weight at the border where torchvision's rule
+    clamps [-1, 0] to index 0 at full weight)."""
     c = checks[timed]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
@@ -640,7 +953,9 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     from tspn_tpu_torch.data.synthetic import synthetic_segments
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
+    # plain versions and the detector's convolutions in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -709,20 +1024,30 @@ def main() -> int:
 
     (served_ppn, train_ppn), counts_ppn = main_path("PPN serve + train", ppn)
     serve.update(served_ppn)
+
+    report_build("roi_align")
+    k7_checks = phase_k7_check(dev)
+    detect, counts_det = main_path("detector", lambda: phase_detect(dev))
+    if counts_det["roi_align"] != detect["want_launches"]:
+        raise AssertionError(f"roi_align launches {counts_det['roi_align']}, want "
+                             f"{detect['want_launches']}")
     for kernel, counts in (("q8s", (counts_int8, counts_ppn)),
                            ("q8f_fused", (counts_int8, counts_ppn)),
-                           ("fused_classify", (counts_fused, counts_ppn))):
+                           ("fused_classify", (counts_fused, counts_ppn)),
+                           ("roi_align", (counts_det,))):
         if any(c[kernel] == 0 for c in counts):
             raise AssertionError(f"a main-path phase launched no {kernel} kernel")
-    launches = {k: counts_int8[k] + counts_fused[k] + counts_ppn[k]
-                for k in counts_int8}
+    all_counts = (counts_int8, counts_fused, counts_ppn, counts_det)
+    launches = {k: sum(c[k] for c in all_counts) for k in counts_int8}
 
     log(smi)
     log(json.dumps({"serve": serve, "train_fused": train, "train_fused_ppn": train_ppn,
                     "q8s_geometries": checks, "q8f_fused_geometries": k2_checks,
-                    "fused_geometries": fused_checks,
+                    "fused_geometries": fused_checks, "detector": detect,
+                    "roi_align_geometries": k7_checks,
                     "main_path_launches": {"int8_serve": counts_int8,
-                                           "fused": counts_fused, "ppn": counts_ppn}}))
+                                           "fused": counts_fused, "ppn": counts_ppn,
+                                           "detector": counts_det}}))
     log(json.dumps({"kernels": [
         kernel_entry("q8s", "tspn_tpu_torch/csrc/q8s.cu",
                      "tspn_tpu/ops/pairwise.py:481", launches["q8s"], checks, "rel"),
@@ -732,6 +1057,9 @@ def main() -> int:
         kernel_entry("q8f_fused", "tspn_tpu_torch/csrc/q8f_fused.cu",
                      "tspn_tpu/ops/pairwise.py:1071", launches["q8f_fused"],
                      k2_checks, "serve"),
+        kernel_entry("roi_align", "tspn_tpu_torch/csrc/roi_align.cu",
+                     "tspn_tpu/ops/roi_align.py:171", launches["roi_align"],
+                     k7_checks, "detect"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

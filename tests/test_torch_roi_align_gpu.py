@@ -1,0 +1,151 @@
+"""The RoIAlign CUDA kernel (K7) on a card (marked gpu; each test skips
+without one).
+
+Imports only torch, numpy and tspn_tpu_torch:
+``python -m pytest tests/test_torch_roi_align_gpu.py -q``.
+
+* K7 agrees with ``roi_align_plain`` within 1e-5 * |plain| + 1e-6 per
+  element: at the boundary boxes of tests/test_roi_align.py at (7, 2),
+  (4, 1) and (14, 2), with C a multiple of 4 (float4 taps) and not
+  (scalar taps); and over a batch of images with a ragged RoI count.
+* An image index outside [0, N) pools zeros; the wrapper raises on
+  operands the kernel does not take.
+* A small detector on the card launches K7 once per detect batch and
+  gives the detections of the plain RoIAlign on the same features.
+"""
+
+import pytest
+import torch
+
+from tspn_tpu_torch.ops import roi_align as tra
+
+pytestmark = pytest.mark.gpu
+
+BOXES = [
+    [2.0, 3.0, 10.0, 12.0],
+    [-3.0, -2.0, 5.0, 6.0],
+    [18.0, 14.0, 30.0, 26.0],
+    [0.0, 0.0, 24.0, 20.0],
+    [5.0, 5.0, 5.0, 5.0],
+    [-4.0, -3.0, 5.0, 6.0],
+    [18.0, 14.0, 28.0, 24.0],
+    [-1.5, -1.0, 0.5, 21.0],
+]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the roi_align kernel has no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _assert_agrees(out, ref):
+    assert out.shape == ref.shape
+    bound = 1e-5 * ref.abs() + 1e-6
+    assert bool(((out - ref).abs() <= bound).all()), float((out - ref).abs().max())
+
+
+@pytest.mark.parametrize("c", [8, 6])
+@pytest.mark.parametrize("out_size,s", [(7, 2), (4, 1), (14, 2)])
+def test_kernel_agrees_with_plain_at_the_borders(cuda_device, out_size, s, c):
+    gen = torch.Generator().manual_seed(c)
+    feats = torch.rand((1, 20, 24, c), generator=gen).to(cuda_device)
+    boxes = torch.tensor(BOXES, device=cuda_device)
+    idx = torch.zeros(len(BOXES), dtype=torch.int32, device=cuda_device)
+    before = tra.LAUNCHES["roi_align"]
+    out = tra.roi_align(feats, boxes, idx, out_size, s)
+    ref = tra.roi_align_plain(feats, boxes, idx, out_size, s)
+    torch.cuda.synchronize()
+    assert tra.LAUNCHES["roi_align"] == before + 1
+    _assert_agrees(out, ref)
+
+
+def test_kernel_agrees_over_a_batch_with_ragged_rois(cuda_device):
+    gen = torch.Generator().manual_seed(1)
+    feats = torch.rand((3, 40, 40, 256), generator=gen).to(cuda_device)
+    r = 301
+    xy = torch.rand((r, 2), generator=gen) * 48 - 4
+    wh = torch.rand((r, 2), generator=gen) * 30
+    boxes = torch.cat([xy, xy + wh], 1).to(cuda_device)
+    idx = torch.randint(0, 3, (r,), generator=gen, dtype=torch.int32).to(cuda_device)
+    out = tra.roi_align(feats, boxes, idx, 14, 2)
+    ref = torch.cat([tra.roi_align_plain(feats, boxes[k:k + 64], idx[k:k + 64], 14, 2)
+                     for k in range(0, r, 64)])
+    torch.cuda.synchronize()
+    _assert_agrees(out, ref)
+
+
+def test_out_of_range_image_pools_zeros(cuda_device):
+    feats = torch.rand((2, 8, 8, 4), device=cuda_device)
+    boxes = torch.tensor([[1.0, 1.0, 5.0, 5.0]] * 3, device=cuda_device)
+    idx = torch.tensor([0, 2, -1], dtype=torch.int32, device=cuda_device)
+    out = tra.roi_align(feats, boxes, idx, 4, 2)
+    torch.cuda.synchronize()
+    assert out[0].abs().sum() > 0 and not out[1:].any()
+
+
+def test_kernel_rejects_bad_operands(cuda_device):
+    feats = torch.rand((2, 8, 8, 4), device=cuda_device)
+    boxes = torch.tensor([[1.0, 1.0, 5.0, 5.0]], device=cuda_device)
+    idx = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        tra._roi_align_cuda(feats, boxes, idx.long(), 4, 2)
+    with pytest.raises(TypeError):
+        tra._roi_align_cuda(feats.double(), boxes, idx, 4, 2)
+    with pytest.raises(ValueError):
+        tra._roi_align_cuda(feats.permute(0, 2, 1, 3), boxes, idx, 4, 2)
+    with pytest.raises(ValueError):
+        tra._roi_align_cuda(feats, boxes.cpu(), idx, 4, 2)
+    with pytest.raises(ValueError):
+        tra._roi_align_cuda(feats, boxes, idx, 14, 10)
+    with pytest.raises(NotImplementedError):
+        tra.roi_align(feats.bfloat16(), boxes, idx, 4, 2)
+
+
+def test_small_detector_on_the_card(cuda_device):
+    """Depth 26, 3 classes: one K7 launch per detect batch, and the same
+    detections as the plain RoIAlign on the same backbone features."""
+    from tspn_tpu_torch.detection.rcnn import DetectionConfig, FasterRCNN
+    from tspn_tpu_torch.pipeline import detect_video_frames
+
+    cfg = DetectionConfig(num_classes=3, depth=26, anchor_sizes=(32, 64),
+                          pre_nms_topk_test=200, post_nms_topk_test=64,
+                          max_detections=16)
+    model = FasterRCNN(cfg, generator=torch.Generator().manual_seed(0))
+    model = model.to(cuda_device).eval()
+    frames = torch.rand((5, 96, 128, 3), generator=torch.Generator().manual_seed(2))
+    tra.reset_launches()
+    dets = detect_video_frames(model, frames.numpy(), device=cuda_device, batch_size=2)
+    assert tra.LAUNCHES["roi_align"] == 3 and dets["mask"].any(axis=1).all()
+
+    images = frames[:2].to(cuda_device)
+    with torch.no_grad():
+        feats = model.features(images)
+        kernel = model.detect_from_features(feats, (96, 128))
+        model.roi_pool = tra.roi_align_plain
+        try:
+            plain = model.detect_from_features(feats, (96, 128))
+        finally:
+            model.roi_pool = tra.roi_align
+    assert torch.equal(kernel["mask"], plain["mask"])
+    for b in range(2):
+        _assert_same_but_ties({k: v[b].cpu() for k, v in kernel.items()},
+                              {k: v[b].cpu() for k, v in plain.items()})
+
+
+def _assert_same_but_ties(ours, ref, tie=1e-5):
+    """Slot by slot, apart from slots whose reference score lies within
+    ``tie`` of a neighbour's: those must hold an equally scored entry."""
+    kept = torch.nonzero(ref["mask"])[:, 0].tolist()
+    assert kept
+    for k in kept:
+        same = (int(ours["classes"][k]) == int(ref["classes"][k])
+                and torch.allclose(ours["boxes"][k], ref["boxes"][k], rtol=1e-5, atol=1e-3))
+        close = abs(float(ours["scores"][k] - ref["scores"][k])) <= tie
+        if same and close:
+            continue
+        gaps = (ref["scores"][kept] - ref["scores"][k]).abs()
+        assert close and float(gaps.sort().values[1]) <= tie, f"slot {k} differs"

@@ -1,0 +1,116 @@
+"""ResNet (C4 split) backbone for Faster R-CNN (counterpart of
+tspn_tpu/detection/resnet.py).
+
+Bottleneck stages with frozen-BN affines (detectron2's
+FrozenBatchNorm2d): stem + res2-res4 give the stride-16, 1024-channel
+feature map, and res5 is the RoI head (2048 channels). Modules take and
+give NCHW tensors, as torch convs do; run them channels-last on the card
+(``model.to(memory_format=torch.channels_last)``), so the backbone's
+output is already the (N, H, W, C) map that RoIAlign reads. Parameter
+names follow the flax tree (``stem_conv``, ``res2.block0.conv1``, ...),
+so a JAX checkpoint maps across by name.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+# stage depths (26 = one bottleneck per stage, for tests/smoke)
+RESNET_DEPTHS = {
+    26: (1, 1, 1, 1),
+    50: (3, 4, 6, 3),
+    101: (3, 4, 23, 3),
+    152: (3, 8, 36, 3),
+}
+
+
+class FrozenAffine(nn.Module):
+    """Per-channel scale + bias over NCHW (FrozenBatchNorm equivalent)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scale[:, None, None] + self.bias[:, None, None]
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=padding, bias=False)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int,
+                 bottleneck_channels: int, stride: int = 1):
+        super().__init__()
+        self.has_shortcut = in_channels != out_channels or stride != 1
+        if self.has_shortcut:
+            # 1x1 at the block's stride, no padding
+            self.shortcut = _conv(in_channels, out_channels, 1, stride)
+            self.shortcut_norm = FrozenAffine(out_channels)
+        self.conv1 = _conv(in_channels, bottleneck_channels, 1)
+        self.norm1 = FrozenAffine(bottleneck_channels)
+        # the stride is on the 3x3, with explicit (1, 1) padding
+        self.conv2 = _conv(bottleneck_channels, bottleneck_channels, 3, stride, 1)
+        self.norm2 = FrozenAffine(bottleneck_channels)
+        self.conv3 = _conv(bottleneck_channels, out_channels, 1)
+        self.norm3 = FrozenAffine(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shortcut = x
+        if self.has_shortcut:
+            shortcut = self.shortcut_norm(self.shortcut(x))
+        y = torch.relu(self.norm1(self.conv1(x)))
+        y = torch.relu(self.norm2(self.conv2(y)))
+        y = self.norm3(self.conv3(y))
+        return torch.relu(shortcut + y)
+
+
+class ResStage(nn.Module):
+    def __init__(self, num_blocks: int, in_channels: int, out_channels: int,
+                 bottleneck_channels: int, first_stride: int = 2):
+        super().__init__()
+        for i in range(num_blocks):
+            self.add_module(f"block{i}", Bottleneck(
+                in_channels if i == 0 else out_channels, out_channels,
+                bottleneck_channels, stride=first_stride if i == 0 else 1,
+            ))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.children():
+            x = block(x)
+        return x
+
+
+class ResNetC4Backbone(nn.Module):
+    """stem + res2..res4: images (N, 3, H, W) -> (N, 1024, H/16, W/16)."""
+
+    def __init__(self, depth: int = 101):
+        super().__init__()
+        d2, d3, d4, _ = RESNET_DEPTHS[depth]
+        self.stem_conv = _conv(3, 64, 7, stride=2, padding=3)
+        self.stem_norm = FrozenAffine(64)
+        # torch pads the max-pool with -inf, as flax does
+        self.pool = nn.MaxPool2d(3, stride=2, padding=1)
+        self.res2 = ResStage(d2, 64, 256, 64, first_stride=1)
+        self.res3 = ResStage(d3, 256, 512, 128)
+        self.res4 = ResStage(d4, 512, 1024, 256)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.stem_norm(self.stem_conv(images)))
+        x = self.pool(x)
+        return self.res4(self.res3(self.res2(x)))
+
+
+class Res5Head(nn.Module):
+    """res5 on RoI features: (R, 1024, 14, 14) -> (R, 2048) through the
+    stride-2 stage and a mean over the spatial axes (the C4 box head)."""
+
+    def __init__(self, depth: int = 101):
+        super().__init__()
+        self.res5 = ResStage(RESNET_DEPTHS[depth][3], 1024, 2048, 512, first_stride=2)
+
+    def forward(self, roi_feats: torch.Tensor) -> torch.Tensor:
+        return self.res5(roi_feats).mean(dim=(2, 3))

@@ -91,6 +91,10 @@ def q8f_fused_library() -> ctypes.CDLL:
     return _bound("q8f_fused", "tspn_q8f_fused_launch", 8, 5)
 
 
+def roi_align_library() -> ctypes.CDLL:
+    return _bound("roi_align", "tspn_roi_align_launch", 4, 8)
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a C entry point."""
     if err != 0:

@@ -1,0 +1,204 @@
+"""RoIAlign over a batch of channels-last feature maps (counterpart of
+tspn_tpu/ops/roi_align.py).
+
+torchvision / detectron2 ``roi_align`` with ``aligned=True`` and a static
+sampling ratio s, including the border rules of torchvision's
+``bilinear_interpolate``: a sample strictly outside [-1, size] adds zero,
+a sample in [-1, 0] clamps to index 0 at full weight, and one at or past
+size-1 collapses to the last index. Features are (N, H, W, C), boxes
+(R, 4) xyxy in feature coordinates (image boxes over the stride), and
+``batch_idx`` (R,) says which image each box pools from; the output is
+(R, out, out, C).
+
+- ``roi_align_plain``: the gather form of ``roi_align_xla`` (rows, then
+  columns, then the s x s mean). The kernel's oracle, and the CPU path.
+- ``roi_align_separable``: the two-einsum form of ``roi_align_separable``
+  (per-axis pooled weight tables), plain too.
+- ``roi_align``: the dispatch. On a CUDA tensor it launches
+  ``csrc/roi_align.cu`` (K7, direct bilinear sampling, all images' RoIs
+  in one launch) or raises; on a CPU tensor it runs ``roi_align_plain``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+# K7 launches made by the dispatch on CUDA tensors
+LAUNCHES = {"roi_align": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["roi_align"] = 0
+
+
+def _as_batch(features: torch.Tensor, boxes: torch.Tensor, batch_idx):
+    """(H, W, C) features with no image index -> one image of a batch."""
+    if features.dim() == 3:
+        if batch_idx is not None:
+            raise ValueError("roi_align: batch_idx needs (N, H, W, C) features")
+        features = features[None]
+    if batch_idx is None:
+        if features.shape[0] != 1:
+            raise ValueError("roi_align: batch_idx is required for N > 1 images")
+        batch_idx = torch.zeros(boxes.shape[0], dtype=torch.int32, device=boxes.device)
+    return features, batch_idx
+
+
+def _sample_coords(lo, extent, output_size: int, sampling_ratio: int):
+    """Sample centres (R, out * s) along one axis: for output bin i,
+    samples at lo + (i + (k + .5)/s) * extent/out. The divisors are
+    tensors: PyTorch's CUDA path divides by a Python number as a multiply
+    by its reciprocal, an ulp off the true quotient, which the sample
+    index then scales by up to out * s."""
+    n = output_size * sampling_ratio
+    s, out = (torch.full((1,), float(v), device=lo.device)
+              for v in (sampling_ratio, output_size))
+    grid = (torch.arange(n, device=lo.device, dtype=torch.float32) + 0.5) / s
+    return lo[:, None] + grid[None, :] * (extent[:, None] / out)
+
+
+def _bilinear_1d(coord: torch.Tensor, size: int):
+    """torchvision bilinear_interpolate along one axis -> (i0, i1, w0, w1)."""
+    inside = (coord >= -1.0) & (coord <= size)
+    c = coord.clamp(min=0.0)
+    low = torch.floor(c)
+    at_top = low >= size - 1
+    i0 = low.clamp(max=size - 1).long()
+    i1 = (low + 1).clamp(max=size - 1).long()
+    frac = torch.where(at_top, torch.zeros_like(c), c - low)
+    zero = torch.zeros_like(c)
+    return (i0, i1, torch.where(inside, 1.0 - frac, zero),
+            torch.where(inside, frac, zero))
+
+
+def _box_axes(boxes: torch.Tensor):
+    x0 = boxes[:, 0] - 0.5
+    y0 = boxes[:, 1] - 0.5
+    bw = (boxes[:, 2] - boxes[:, 0]).clamp(min=1e-6)
+    bh = (boxes[:, 3] - boxes[:, 1]).clamp(min=1e-6)
+    return x0, y0, bw, bh
+
+
+def roi_align_plain(
+    features: torch.Tensor,      # (N, H, W, C), or (H, W, C) with no batch_idx
+    boxes: torch.Tensor,         # (R, 4) xyxy in feature coordinates
+    batch_idx: torch.Tensor | None = None,  # (R,) int, image of each box
+    output_size: int = 14,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """Gather form -> (R, out, out, C); it materializes an (R, out*s, W, C)
+    intermediate, so a caller on the card pools large RoI sets in chunks."""
+    features, batch_idx = _as_batch(features, boxes, batch_idx)
+    _n, h, w, c = features.shape
+    r = boxes.shape[0]
+    s = sampling_ratio
+    n = output_size * s
+    x0, y0, bw, bh = _box_axes(boxes)
+    yi0, yi1, wy0, wy1 = _bilinear_1d(_sample_coords(y0, bh, output_size, s), h)
+    xi0, xi1, wx0, wx1 = _bilinear_1d(_sample_coords(x0, bw, output_size, s), w)
+
+    img = batch_idx.long()[:, None]
+    rows = (features[img, yi0] * wy0[..., None, None]
+            + features[img, yi1] * wy1[..., None, None])  # (R, n, W, C)
+    cols0 = torch.gather(rows, 2, xi0[:, None, :, None].expand(r, n, n, c))
+    cols1 = torch.gather(rows, 2, xi1[:, None, :, None].expand(r, n, n, c))
+    samples = cols0 * wx0[:, None, :, None] + cols1 * wx1[:, None, :, None]
+    samples = samples.reshape(r, output_size, s, output_size, s, c)
+    return samples.mean(dim=(2, 4))
+
+
+def _pooled_tables(lo, extent, size: int, output_size: int, s: int):
+    """(R, out, size): the summed bilinear weight of each feature index
+    over the s samples of each output bin (the separable factor)."""
+    coord = _sample_coords(lo, extent, output_size, s)  # (R, out * s)
+    i0, i1, w0, w1 = _bilinear_1d(coord, size)
+    r = lo.shape[0]
+    table = torch.zeros((r, output_size * s, size), dtype=coord.dtype, device=coord.device)
+    table.scatter_add_(2, i0[..., None], w0[..., None])
+    table.scatter_add_(2, i1[..., None], w1[..., None])
+    return table.reshape(r, output_size, s, size).sum(dim=2)
+
+
+def roi_align_separable(
+    features: torch.Tensor,
+    boxes: torch.Tensor,
+    batch_idx: torch.Tensor | None = None,
+    output_size: int = 14,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """Two-einsum form -> (R, out, out, C): per-axis pooled weight tables,
+    then one contraction over H and one over W, image by image."""
+    features, batch_idx = _as_batch(features, boxes, batch_idx)
+    _n, h, w, c = features.shape
+    s = sampling_ratio
+    x0, y0, bw, bh = _box_axes(boxes)
+    wy = _pooled_tables(y0, bh, h, output_size, s).to(features.dtype)
+    wx = _pooled_tables(x0, bw, w, output_size, s).to(features.dtype)
+    out = torch.zeros((boxes.shape[0], output_size, output_size, c),
+                      dtype=features.dtype, device=features.device)
+    for b in torch.unique(batch_idx).tolist():
+        sel = torch.nonzero(batch_idx == b)[:, 0]
+        tmp = torch.einsum("rih,hwc->riwc", wy[sel], features[b])
+        out[sel] = torch.einsum("rjw,riwc->rijc", wx[sel], tmp)
+    return out * (1.0 / (s * s))
+
+
+def _roi_align_cuda(features, boxes, batch_idx, output_size, sampling_ratio):
+    from tspn_tpu_torch.ops import _cuda
+
+    n, h, w, c = features.shape
+    r = boxes.shape[0]
+    if any(t.device != features.device for t in (boxes, batch_idx)):
+        raise ValueError("roi_align: all operands must be on one device")
+    if features.dtype != torch.float32 or boxes.dtype != torch.float32:
+        raise TypeError("roi_align: features and boxes must be float32")
+    if batch_idx.dtype != torch.int32:
+        raise TypeError("roi_align: batch_idx must be int32")
+    if not all(t.is_contiguous() for t in (features, boxes, batch_idx)):
+        raise ValueError("roi_align: operands must be contiguous (features channels-last)")
+    if boxes.shape != (r, 4) or batch_idx.shape != (r,):
+        raise ValueError(f"roi_align: bad shapes boxes {tuple(boxes.shape)} "
+                         f"batch_idx {tuple(batch_idx.shape)}")
+    if not (1 <= sampling_ratio <= 16 and output_size * sampling_ratio <= 128):
+        raise ValueError(f"roi_align: out {output_size} x s {sampling_ratio} "
+                         "exceeds the kernel's 128 samples per axis")
+    out = torch.empty((r, output_size, output_size, c), dtype=torch.float32,
+                      device=features.device)
+    if r == 0 or c == 0:
+        return out
+    vec = 4 if c % 4 == 0 and features.data_ptr() % 16 == 0 else 1
+    lib = _cuda.roi_align_library()
+    with torch.cuda.device(features.device):
+        stream = torch.cuda.current_stream(features.device).cuda_stream
+        err = lib.tspn_roi_align_launch(
+            features.data_ptr(), boxes.data_ptr(), batch_idx.data_ptr(), out.data_ptr(),
+            r, n, h, w, c, output_size, sampling_ratio, vec, ctypes.c_void_p(stream),
+        )
+    _cuda.check(err, "tspn_roi_align_launch")
+    LAUNCHES["roi_align"] += 1
+    return out
+
+
+def roi_align(
+    features: torch.Tensor,
+    boxes: torch.Tensor,
+    batch_idx: torch.Tensor | None = None,
+    output_size: int = 14,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """RoIAlign -> (R, out, out, C) f32: K7 on a CUDA tensor, the plain
+    gather form on a CPU tensor."""
+    if features.dtype != torch.float32:
+        raise NotImplementedError(
+            f"roi_align in {features.dtype}: only float32 is ported (bf16 is "
+            "queued, ROADMAP queue 1)"
+        )
+    features, batch_idx = _as_batch(features, boxes, batch_idx)
+    if features.device.type == "cuda":
+        return _roi_align_cuda(features, boxes, batch_idx.to(torch.int32),
+                               output_size, sampling_ratio)
+    if features.device.type == "cpu":
+        return roi_align_plain(features, boxes, batch_idx, output_size, sampling_ratio)
+    raise ValueError(f"roi_align: no implementation for device {features.device}")

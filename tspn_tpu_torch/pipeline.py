@@ -1,0 +1,31 @@
+"""Front-end pipeline (counterpart of tspn_tpu/pipeline.py): frames ->
+detections. Only the detector stage is ported so far; the tracker, the
+re-ID encoder and the feature extraction come later.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def detect_video_frames(
+    model, frames: np.ndarray, *, device, batch_size: int = 8
+) -> Dict[str, np.ndarray]:
+    """Run the detector (a FasterRCNN on ``device``) over (T, H, W, 3)
+    float32 frames in batches of ``batch_size``, the last batch padded
+    with zero frames and sliced; -> stacked fixed-size
+    detections (T, Dmax, ...) as numpy arrays."""
+    outs = []
+    t = frames.shape[0]
+    for start in range(0, t, batch_size):
+        chunk = frames[start : start + batch_size]
+        pad = batch_size - chunk.shape[0]
+        if pad:
+            chunk = np.concatenate([chunk, np.zeros_like(chunk[:1]).repeat(pad, 0)])
+        images = torch.as_tensor(np.asarray(chunk, np.float32), device=device)
+        out = model.detect(images)
+        outs.append({k: v[: batch_size - pad].cpu().numpy() for k, v in out.items()})
+    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}

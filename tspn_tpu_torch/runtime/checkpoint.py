@@ -130,6 +130,60 @@ def jax_params_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:
     return params
 
 
+# the flax FasterRCNN's top-level subtrees
+DETECTOR_SUBTREES = ("backbone", "rpn_head", "res5", "cls_score", "bbox_pred")
+
+
+def detector_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """Map the flax FasterRCNN param tree (numpy leaves) to the port's
+    FasterRCNN state dict. Module paths carry over by name; a conv
+    ``kernel`` (HWIO) becomes ``weight`` (OIHW), a Dense ``kernel`` (in,
+    out) becomes ``weight`` (out, in); biases and the FrozenAffine
+    ``scale``/``bias`` stay as they are."""
+    unknown = set(params) - set(DETECTOR_SUBTREES)
+    if unknown:
+        raise ValueError(f"not a FasterRCNN param tree: subtrees {sorted(unknown)}")
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: dict, prefix: str):
+        for name, v in tree.items():
+            key = f"{prefix}.{name}" if prefix else name
+            if isinstance(v, dict):
+                walk(v, key)
+                continue
+            v = np.asarray(v, np.float32)
+            if name == "kernel":
+                key = f"{prefix}.weight"
+                v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
+            out[key] = torch.from_numpy(np.array(v, order="C"))  # a writable copy
+
+    walk(params, "")
+    return out
+
+
+def jax_params_from_detector_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``detector_state_dict_from_jax``: the port's
+    FasterRCNN state dict -> the flax param tree with numpy leaves."""
+    params: dict = {}
+    for key, v in state_dict.items():
+        v = v.detach().to("cpu", torch.float32).numpy()
+        *path, leaf = key.split(".")
+        if leaf == "weight":
+            leaf = "kernel"
+            v = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v.T
+        node = params
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(v)
+    return params
+
+
+def load_detector_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A JAX detector checkpoint (flax msgpack, as ``tools/run_pipeline.py``
+    loads it) -> the port's FasterRCNN state dict."""
+    return detector_state_dict_from_jax(load_jax_checkpoint(path)["params"])
+
+
 def save_checkpoint(path: str, model: torch.nn.Module, step: int = 0,
                     loss: float = 0.0, optimizer=None, scheduler=None,
                     plateau=None) -> str:
