@@ -5,14 +5,15 @@
 Phases, in order; any failure raises and the exit code is nonzero:
 
 1. report the card (nvidia-smi name and power limit) and versions;
-2. build the three kernels from their sources with nvcc, one build per
+2. build the kernels from their five sources with nvcc, one build per
    source, all side by side (a fresh checkout always builds; a second run
-   loads the builds), and report the q8s build (tspn_tpu_torch/csrc/q8s.cu);
+   loads the builds), and report the q8s build (tspn_tpu_torch/csrc/q8s.cu,
+   which holds K1, K4, K6 and the probe);
 3. hold the q8s kernel against its plain PyTorch version at the three
    geometries of the serve path (tracklet, rel, expanded), with ragged
    row counts: the results must be equal bit for bit (torch.equal);
-   time both with CUDA events (``cuda_median_ms``: 3 warm-ups, then the
-   median of 5 runs of 20 queued calls);
+   time both with CUDA events (``runtime.timing.cuda_median_ms``: 3
+   warm-ups, then the median of 5 runs of 20 queued calls);
 4. report the q8f_fused build (csrc/q8f_fused.cu) and hold it against its
    plain version bit for bit at four geometries: the serve geometry (16 x
    992 rows, N 32), a ragged row count, the PPN-pruned geometry (16 x 256
@@ -72,12 +73,27 @@ Phases, in order; any failure raises and the exit code is nonzero:
     detections; K7 and the plain RoIAlign on the same backbone features
     give the same detections apart from near-ties; one detect_tta batch
     and one roi_classeme call (one launch each); one profiled run for the
-    busy share and K7's share of the device time.
+    busy share and K7's share of the device time;
+16. report the builds of csrc/q8s.cu and csrc/q8_bf16.cu (K5);
+17. hold K4 (q8i8), K5 (q8bf), K6 (q8t) and the probe against their plain
+    versions (run in chunks of 8192 rows) at the geometry of
+    tools/bench_pair_kernels.py (96 x 992 = 95,232 rows, D 11,264), at a
+    ragged 95,155 rows and at the VidOR layout (C 80, D 11,392, 333 rows),
+    each with zero rows and empty BoW blocks: K4, K6 and the probe (all
+    three modes) equal bit for bit, K4 equal to K1 and K6 to K1
+    transposed on the same rows, K5 within |K5 - plain| <= 1e-5 *
+    (|q_h| @ |w_h| s + sum_k |q_k| @ |w_k| / L1_k + |b|) + 1e-6; time
+    kernel and plain, and torch._int_mm beside the probe where it takes
+    the shapes (its time is a yardstick; the port never calls it);
+18. run the ported tool, python -m tspn_tpu_torch.tools.bench_pair_kernels,
+    at its default 96 segments: K1, the probe in its three modes, K6, one
+    launch per timed call of each leg.
 
 Convolutions and matrix products run in full f32 (TF32 off throughout).
 The kernel launches of the main path are counted from zero before each
-main-path phase group and read right after it: phases 5-6, 9-10, 11-12
-and 15. It prints the kernels' JSON line, then as its last line
+main-path phase group and read right after it: phases 5-6, 9-10, 11-12,
+15 and 18. K4 and K5 run on no main path (the JAX package has no caller
+for them either); their check launches stand in their entries. It prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero
 before printing any result.
 """
@@ -93,6 +109,9 @@ from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace as NS
 
 import torch
+
+from tspn_tpu_torch.runtime.timing import ITERS, REPS, WARMUP, bound, cuda_median_ms
+from tspn_tpu_torch.tools.bench_pair_kernels import PROBE_ROWS
 
 SEED = 0
 NUM_SEGMENTS = 96
@@ -136,46 +155,15 @@ PLAIN_CHUNK = 256  # RoIs per roi_align_plain call: its (R, 28, W, C) gather
 DET_FRAMES, DET_BATCH, DET_SIZE = 20, 8, 640
 DET_RAISED_CLASSES, DET_RAISED_BIAS = 3, 3.0
 DET_TIE = 1e-5
-# published NVIDIA H100 SXM peaks: HBM3 bytes/s, int8 tensor-core op/s,
-# f32 op/s on the CUDA cores
-PEAK = {"bytes": 3.35e12, "int8": 1979e12, "f32": 67e12}
+# K4, K5, K6 and probe checks: (name, objects C of the layout, rows); the
+# tool geometry is NUM_SEGMENTS x 992 pairs of tools/bench_pair_kernels.py
+VARIANT_CASES = (("tool", 35, NUM_SEGMENTS * 992), ("ragged", 35, NUM_SEGMENTS * 992 - 77),
+                 ("vidor", 80, 333))
+VARIANT_CHUNK = 8192  # rows per plain call: a float64 copy of 95k x 11264 is 8.6 GB
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_median_ms(fn, warmup: int = 3, iters: int = 20, reps: int = 5) -> float:
-    """Device time of one ``fn()``: the median over ``reps`` runs of
-    ``iters`` back-to-back calls, each run timed with CUDA events and
-    divided by ``iters``. A device-side sleep ahead of each run lets the
-    host queue all its launches first, so host launch latency (tens of
-    microseconds through the Python wrappers) is not timed."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)  # about 25 ms of device time
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
-
-
-def bound(tensors, out, ops: float, kind: str) -> dict:
-    """Least time the card could take for a call: the larger of its bytes
-    (each input read once, the output written once) over the HBM rate and
-    its operations over the peak rate of their type."""
-    moved = sum(t.numel() * t.element_size() for t in tensors) + out.numel() * out.element_size()
-    bytes_ms, ops_ms = moved / PEAK["bytes"] * 1e3, ops / PEAK[kind] * 1e3
-    return {"bytes": moved, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def phase_kernel_check(dev) -> dict:
@@ -897,12 +885,185 @@ def phase_detect(dev) -> dict:
     return result
 
 
+def variant_inputs(gen, lo, p: int, dev) -> dict:
+    """Operands of K4, K5, K6 and the probe over one set of int8 rows in
+    [-128, 127]: the last 50 rows all zero, BoW block 1 of every 7th row
+    and block 7 of every 11th row empty; head scales; K1's (P, 16) scales
+    of those rows and the transposed copies; int8 weights (R 132), bf16
+    weights (normal(0.01), rounded) and the probe's int8 (160, D) weights."""
+    from tspn_tpu_torch.ops import pairwise as pw
+
+    d, hp, blk, r = lo.device_dim, lo.dev_head_pad, lo.dev_block, NUM_PREDICATES
+    q = torch.randint(-128, 128, (p, d), generator=gen, device=dev, dtype=torch.int8)
+    q[-50:] = 0
+    q[::7, hp + blk : hp + 2 * blk] = 0
+    q[1::11, hp + 7 * blk :] = 0
+    hs = torch.rand((p,), generator=gen, device=dev) / 64
+    scales = pw.q8_block_scales(q, hs, lo)
+    return {
+        "q": q, "hs": hs, "scales": scales, "xt": q.T.contiguous(),
+        "scales_t": scales.T.contiguous(),
+        "qw_t": torch.randint(-127, 128, (r, d), generator=gen, device=dev, dtype=torch.int8),
+        "sw": torch.rand((r,), generator=gen, device=dev) / 127,
+        "b": torch.randn((r,), generator=gen, device=dev),
+        "w_bf16_t": pw.weights_bf16_t(torch.randn((d, r), generator=gen, device=dev) * 0.01),
+        "w_probe": torch.randint(-128, 128, (PROBE_ROWS, d), generator=gen, device=dev,
+                                 dtype=torch.int8),
+    }
+
+
+def in_chunks(p: int, dim: int, fn):
+    """``fn(rows)`` over slices of VARIANT_CHUNK rows, joined along ``dim``."""
+    return torch.cat([fn(slice(a, a + VARIANT_CHUNK)) for a in range(0, p, VARIANT_CHUNK)],
+                     dim=dim)
+
+
+def k5_worst_over_bound(t: dict, out, ref, lo) -> float:
+    """max |K5 - plain| / (1e-5 (|q_h| @ |w_h| s + sum_k |q_k| @ |w_k| / L1_k
+    + |b|) + 1e-6), in float64, a chunk of rows at a time."""
+    hp, nb, blk = lo.dev_head_pad, lo.num_bow_blocks, lo.dev_block
+    wa = t["w_bf16_t"].double().abs()
+    worst = 0.0
+    for a in range(0, out.shape[0], VARIANT_CHUNK):
+        rows = slice(a, a + VARIANT_CHUNK)
+        qa = t["q"][rows].double().abs()
+        s = t["scales"][rows].double()
+        terms = (qa[:, :hp] @ wa[:, :hp].T) * s[:, :1]
+        for k in range(nb):
+            c = slice(hp + k * blk, hp + (k + 1) * blk)
+            terms += (qa[:, c] @ wa[:, c].T) * s[:, k + 1 : k + 2]
+        tol = 1e-5 * (terms + t["b"].double().abs()) + 1e-6
+        err = (out[rows].double() - ref[rows].double()).abs()
+        worst = max(worst, float((err / tol).max()))
+    return worst
+
+
+def phase_variant_check(dev) -> dict:
+    """K4, K5, K6 and the probe against their plain versions (run in
+    chunks of rows) at the tool geometry, a ragged P and the VidOR layout:
+    K4, K6 and the probe equal bit for bit, K4 equal to K1 and K6 to K1
+    transposed on the same rows, K5 within its bound; kernel and plain
+    timed at each; torch._int_mm beside the probe at the tool geometry."""
+    from tspn_tpu_torch.data.layout import FeatureLayout
+    from tspn_tpu_torch.ops import pairwise as pw
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    before = dict(pw.LAUNCHES)
+    report = {"q8i8": {}, "q8bf": {}, "q8t": {}, "q8_probe": {}}
+    for name, objects, p in VARIANT_CASES:
+        lo = FeatureLayout.for_objects(objects)
+        t = variant_inputs(gen, lo, p, dev)
+        d, r = lo.device_dim, NUM_PREDICATES
+        flop = 2.0 * p * d * r
+        k4 = lambda: pw.normalize_classify_q8i8(t["q"], t["hs"], t["qw_t"], t["sw"], t["b"], lo)
+        k5 = lambda: pw.normalize_classify_q8(t["q"], t["hs"], t["w_bf16_t"], t["b"], lo)
+        k6 = lambda: pw.normalize_classify_q8t(t["xt"], t["scales_t"], t["qw_t"], t["sw"],
+                                               t["b"], lo)
+        plain4 = lambda: in_chunks(p, 0, lambda s: pw.normalize_classify_q8i8_plain(
+            t["q"][s], t["hs"][s], t["qw_t"], t["sw"], t["b"], lo))
+        plain5 = lambda: in_chunks(p, 0, lambda s: pw.normalize_classify_q8_plain(
+            t["q"][s], t["hs"][s], t["w_bf16_t"], t["b"], lo))
+        plain6 = lambda: in_chunks(p, 1, lambda s: pw.normalize_classify_q8t_plain(
+            t["xt"][:, s], t["scales_t"][:, s], t["qw_t"], t["sw"], t["b"], lo))
+        k1 = pw.normalize_classify_q8s(t["q"], t["scales"], t["qw_t"], t["sw"], t["b"], lo)
+        outs = {"q8i8": (k4(), plain4()), "q8bf": (k5(), plain5()), "q8t": (k6(), plain6())}
+        torch.cuda.synchronize()
+        for key, (out, ref) in outs.items():
+            shape = (r, p) if key == "q8t" else (p, r)
+            if out.shape != shape or not torch.isfinite(out).all():
+                raise AssertionError(f"{key} {name}: bad output {tuple(out.shape)}")
+        err = {k: float((o - f).abs().max()) for k, (o, f) in outs.items()}
+        for key in ("q8i8", "q8t"):
+            if not torch.equal(*outs[key]):
+                raise AssertionError(f"{key} {name}: kernel != plain, max |err| {err[key]}")
+        if not torch.equal(outs["q8i8"][0], k1):
+            raise AssertionError(f"q8i8 {name}: K4 != K1 fed the same block scales")
+        if not torch.equal(outs["q8t"][0], k1.T):
+            raise AssertionError(f"q8t {name}: K6 != K1 transposed")
+        worst5 = k5_worst_over_bound(t, *outs["q8bf"], lo)
+        if worst5 > 1.0:
+            raise AssertionError(f"q8bf {name}: |K5 - plain| exceeds the bound "
+                                 f"(max err {err['q8bf']}, worst err/bound {worst5})")
+        del outs, k1
+        timed = {
+            "q8i8": (k4, plain4, (t["q"], t["hs"], t["qw_t"], t["sw"], t["b"]), "int8"),
+            "q8bf": (k5, plain5, (t["q"], t["hs"], t["w_bf16_t"], t["b"]), "bf16"),
+            "q8t": (k6, plain6, (t["xt"], t["scales_t"], t["qw_t"], t["sw"], t["b"]), "int8"),
+        }
+        for key, (kern, plain, operands, kind) in timed.items():
+            out = kern()
+            report[key][name] = {
+                "rows": p, "width": d, "cols": r, "max_abs_err": err[key],
+                "ms": cuda_median_ms(kern), "plain_ms": cuda_median_ms(plain, iters=3),
+                **bound(operands, out, flop, kind)}
+            if key == "q8bf":
+                report[key][name]["worst_err_over_bound"] = worst5
+            del out
+
+        probe_err = 0
+        for mode in pw.PROBE_MODES:
+            out = pw.pair_probe(t["xt"], t["w_probe"], mode)
+            ref = in_chunks(p, 1, lambda s: pw.pair_probe_plain(t["xt"][:, s], t["w_probe"], mode))
+            torch.cuda.synchronize()
+            probe_err = max(probe_err, int((out.long() - ref.long()).abs().max()))
+            if out.shape != (PROBE_ROWS, p) or not torch.equal(out, ref):
+                raise AssertionError(f"q8_probe {name} {mode}: kernel != plain "
+                                     f"(max |err| {probe_err})")
+        del ref
+        onedot = lambda: pw.pair_probe(t["xt"], t["w_probe"], "onedot")
+        entry = {"rows": p, "width": d, "cols": PROBE_ROWS, "modes": list(pw.PROBE_MODES),
+                 "max_abs_err": probe_err, "ms": cuda_median_ms(onedot),
+                 "plain_ms": cuda_median_ms(lambda: in_chunks(p, 1, lambda s: pw.pair_probe_plain(
+                     t["xt"][:, s], t["w_probe"], "onedot")), iters=3),
+                 **bound((t["xt"], t["w_probe"]), out, 2.0 * PROBE_ROWS * d * p, "int8"),
+                 "library_ms": None}
+        if name == "tool":  # one PyTorch call of the same product, never used by the port
+            try:
+                lib = torch._int_mm(t["w_probe"], t["xt"])
+                torch.cuda.synchronize()
+                entry["library_equal"] = torch.equal(lib, out)
+                entry["library_ms"] = cuda_median_ms(lambda: torch._int_mm(t["w_probe"], t["xt"]))
+                del lib
+            except RuntimeError as exc:
+                entry["library_refused"] = str(exc)[:300]
+        report["q8_probe"][name] = entry
+        del out, t
+        torch.cuda.empty_cache()
+        for key in report:
+            c = report[key][name]
+            log(f"{key} {name}: P={c['rows']} D={c['width']} R={c['cols']} "
+                f"max|err| {c['max_abs_err']:.3e}"
+                + (f" (worst err/bound {c['worst_err_over_bound']:.3f})" if key == "q8bf"
+                   else " equal=True")
+                + f" kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms bound "
+                f"{c['bound_ms']:.4f} ms ({c['bound_by']})"
+                + (f" library {c['library_ms']}" if key == "q8_probe" else ""))
+    report["check_launches"] = {k: pw.LAUNCHES[k] - before[k] for k in pw.LAUNCHES}
+    log(f"variant checks: launches {report['check_launches']}; torch._int_mm "
+        + json.dumps({k: v for k, v in report["q8_probe"]["tool"].items()
+                      if k.startswith("library")}))
+    return report
+
+
+def phase_tool(dev) -> dict:
+    """The ported tools/bench_pair_kernels.py at its default 96 segments;
+    every leg launches its kernel once per timed call."""
+    from tspn_tpu_torch.tools import bench_pair_kernels as bench
+
+    result = bench.main(["--segments", str(NUM_SEGMENTS), "--device", str(dev)])
+    if len(result["legs"]) != 5 or result["pairs"] != NUM_SEGMENTS * 992:
+        raise AssertionError(f"bench_pair_kernels: legs {list(result['legs'])}")
+    return result
+
+
 def build_kernels() -> None:
-    """The four kernels' nvcc builds, one per source, started together."""
+    """The five sources' nvcc builds (K1, K4, K6 and the probe share
+    q8s.cu), one per source, started together."""
     from tspn_tpu_torch.ops import _cuda
 
     libraries = (_cuda.q8s_library, _cuda.q8f_fused_library,
-                 _cuda.fused_classify_library, _cuda.roi_align_library)
+                 _cuda.fused_classify_library, _cuda.roi_align_library,
+                 _cuda.q8_bf16_library)
     with ThreadPoolExecutor(len(libraries)) as pool:
         for f in [pool.submit(lib) for lib in libraries]:
             f.result()
@@ -933,19 +1094,21 @@ def main_path(name: str, fn):
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
-                 checks: dict, timed: str) -> dict:
+                 checks: dict, timed: str, **extra) -> dict:
     """One entry of the kernels line: the largest error over the checked
-    geometries, and the times and bound at the geometry ``timed``. No
-    single PyTorch call computes any of the four kernels' functions, so
-    there is no library time (for RoIAlign, ``F.grid_sample``'s zero
-    padding splits the weight at the border where torchvision's rule
-    clamps [-1, 0] to index 0 at full weight)."""
+    geometries, and the times and bound at the geometry ``timed``. Only
+    the probe has a library time (``torch._int_mm``, where it accepts the
+    shapes): no single PyTorch call computes the other kernels' functions
+    (they scale segments of an int32 or bf16 product by per-row scales;
+    for RoIAlign, ``F.grid_sample``'s zero padding splits the weight at the
+    border where torchvision's rule clamps [-1, 0] to index 0 at full
+    weight)."""
     c = checks[timed]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
             "max_abs_err": max(v["max_abs_err"] for v in checks.values()),
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": None}
+            "bound_by": c["bound_by"], "library_ms": c.get("library_ms"), **extra}
 
 
 def main() -> int:
@@ -1031,23 +1194,37 @@ def main() -> int:
     if counts_det["roi_align"] != detect["want_launches"]:
         raise AssertionError(f"roi_align launches {counts_det['roi_align']}, want "
                              f"{detect['want_launches']}")
-    for kernel, counts in (("q8s", (counts_int8, counts_ppn)),
+
+    report_build("q8s")
+    report_build("q8_bf16")
+    variant_checks = phase_variant_check(dev)
+    tool, counts_tool = main_path("bench_pair_kernels", lambda: phase_tool(dev))
+    per_leg = WARMUP + ITERS * REPS  # one launch per timed call of a leg
+    want_tool = {"q8s": per_leg, "q8_probe": 3 * per_leg, "q8t": per_leg}
+    if {k: v for k, v in counts_tool.items() if v} != want_tool:
+        raise AssertionError(f"bench_pair_kernels launches {counts_tool}, want {want_tool}")
+    for kernel, counts in (("q8s", (counts_int8, counts_ppn, counts_tool)),
                            ("q8f_fused", (counts_int8, counts_ppn)),
                            ("fused_classify", (counts_fused, counts_ppn)),
-                           ("roi_align", (counts_det,))):
+                           ("roi_align", (counts_det,)),
+                           ("q8t", (counts_tool,)), ("q8_probe", (counts_tool,))):
         if any(c[kernel] == 0 for c in counts):
             raise AssertionError(f"a main-path phase launched no {kernel} kernel")
-    all_counts = (counts_int8, counts_fused, counts_ppn, counts_det)
+    all_counts = (counts_int8, counts_fused, counts_ppn, counts_det, counts_tool)
     launches = {k: sum(c[k] for c in all_counts) for k in counts_int8}
+    checked = variant_checks.pop("check_launches")
 
     log(smi)
     log(json.dumps({"serve": serve, "train_fused": train, "train_fused_ppn": train_ppn,
                     "q8s_geometries": checks, "q8f_fused_geometries": k2_checks,
                     "fused_geometries": fused_checks, "detector": detect,
                     "roi_align_geometries": k7_checks,
+                    "variant_geometries": variant_checks, "variant_check_launches": checked,
+                    "bench_pair_kernels": tool,
                     "main_path_launches": {"int8_serve": counts_int8,
                                            "fused": counts_fused, "ppn": counts_ppn,
-                                           "detector": counts_det}}))
+                                           "detector": counts_det,
+                                           "bench_pair_kernels": counts_tool}}))
     log(json.dumps({"kernels": [
         kernel_entry("q8s", "tspn_tpu_torch/csrc/q8s.cu",
                      "tspn_tpu/ops/pairwise.py:481", launches["q8s"], checks, "rel"),
@@ -1060,6 +1237,19 @@ def main() -> int:
         kernel_entry("roi_align", "tspn_tpu_torch/csrc/roi_align.cu",
                      "tspn_tpu/ops/roi_align.py:171", launches["roi_align"],
                      k7_checks, "detect"),
+        kernel_entry("q8i8", "tspn_tpu_torch/csrc/q8s.cu",
+                     "tspn_tpu/ops/pairwise.py:571", launches["q8i8"],
+                     variant_checks["q8i8"], "tool", check_launches=checked["q8i8"]),
+        kernel_entry("q8bf", "tspn_tpu_torch/csrc/q8_bf16.cu",
+                     "tspn_tpu/ops/pairwise.py:346", launches["q8bf"],
+                     variant_checks["q8bf"], "tool", check_launches=checked["q8bf"]),
+        kernel_entry("q8t", "tspn_tpu_torch/csrc/q8s.cu",
+                     "tspn_tpu/ops/pairwise.py:1210", launches["q8t"],
+                     variant_checks["q8t"], "tool", check_launches=checked["q8t"]),
+        kernel_entry("q8_probe", "tspn_tpu_torch/csrc/q8s.cu",
+                     "tools/bench_pair_kernels.py:111", launches["q8_probe"],
+                     variant_checks["q8_probe"], "tool", check_launches=checked["q8_probe"],
+                     library_refused=variant_checks["q8_probe"]["tool"].get("library_refused")),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

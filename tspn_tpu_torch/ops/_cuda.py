@@ -83,6 +83,22 @@ def q8s_library() -> ctypes.CDLL:
     return _bound("q8s", "tspn_q8s_launch", 6, 5)
 
 
+def q8i8_library() -> ctypes.CDLL:
+    return _bound("q8s", "tspn_q8i8_launch", 6, 5)
+
+
+def q8t_library() -> ctypes.CDLL:
+    return _bound("q8s", "tspn_q8t_launch", 6, 5)
+
+
+def q8_probe_library() -> ctypes.CDLL:
+    return _bound("q8s", "tspn_q8_probe_launch", 3, 4)
+
+
+def q8_bf16_library() -> ctypes.CDLL:
+    return _bound("q8_bf16", "tspn_q8_bf16_launch", 5, 5)
+
+
 def fused_classify_library() -> ctypes.CDLL:
     return _bound("fused_classify", "tspn_fused_classify_launch", 4, 5)
 

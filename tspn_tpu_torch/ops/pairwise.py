@@ -18,6 +18,11 @@ Counterpart of ``tspn_tpu/ops/pairwise.py``. Two halves:
   ``q8f_fused`` is the factored rel pass with the per-tracklet A-table
   add in its epilogue (``csrc/q8f_fused.cu``), which
   ``factored_classify_q8_fused`` runs after a q8s tracklet pass.
+  K1's variants, in ``csrc/q8s.cu`` beside it: ``normalize_classify_q8i8``
+  (block scales computed in the kernel), ``normalize_classify_q8t``
+  (transposed operands) and ``pair_probe`` (the raw int32 product of
+  ``tools/bench_pair_kernels.py``); ``normalize_classify_q8`` is the int8
+  x bf16 scorer (``csrc/q8_bf16.cu``).
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ import torch
 from tspn_tpu_torch.data.layout import DEFAULT_LAYOUT, FeatureLayout, round_up
 
 # kernel launches made by the dispatchers on CUDA tensors
-LAUNCHES = {"q8s": 0, "fused_classify": 0, "q8f_fused": 0}
+LAUNCHES = {"q8s": 0, "fused_classify": 0, "q8f_fused": 0,
+            "q8i8": 0, "q8bf": 0, "q8t": 0, "q8_probe": 0}
 
 
 def reset_launches() -> None:
@@ -356,41 +362,68 @@ def normalize_classify_fused_plain(
     return xn @ w_dev + b
 
 
-def _fused_classify_cuda(x, w_dev, b, layout) -> torch.Tensor:
+def _require(name: str, tensors: tuple, dtypes: tuple, shapes: tuple,
+             aligned: tuple = ()) -> None:
+    """Raise unless the operands lie on one device with these dtypes and
+    shapes, contiguous, and each of ``aligned`` starts on 16 bytes."""
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError(f"{name}: all operands must be on one device")
+    if any(t.dtype != dt for t, dt in zip(tensors, dtypes)):
+        raise TypeError(f"{name}: operand dtypes {[t.dtype for t in tensors]}, "
+                        f"want {list(dtypes)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if any(tuple(t.shape) != s for t, s in zip(tensors, shapes)):
+        raise ValueError(f"{name}: bad shapes {[tuple(t.shape) for t in tensors]}, "
+                         f"want {list(shapes)}")
+    if any(t.data_ptr() % 16 for t in aligned):
+        raise ValueError(f"{name}: the int8 and bf16 operands must be 16-byte aligned")
+
+
+def _require_geom(name: str, geom, d: int) -> None:
+    hp, nb, blk = geom.dev_head_pad, geom.num_bow_blocks, geom.dev_block
+    if d != geom.device_dim or hp % 64 or blk % 64 or nb > 15:
+        raise ValueError(f"{name}: geometry {geom} does not fit width {d}")
+
+
+def _launch(key: str, library: str, entry: str, device, args: tuple) -> None:
+    """Call the C entry ``entry`` of ``_cuda.<library>()`` with ``args`` on
+    the current stream of ``device``, raise on its error, count it."""
     from tspn_tpu_torch.ops import _cuda
 
+    lib = getattr(_cuda, library)()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
+    _cuda.check(err, entry)
+    LAUNCHES[key] += 1
+
+
+def _dispatch(name: str, lead: torch.Tensor, kernel, plain, *args) -> torch.Tensor:
+    """``kernel(*args)`` for a CUDA ``lead`` operand, ``plain(*args)`` for a
+    CPU one; any other device raises."""
+    if lead.device.type == "cuda":
+        return kernel(*args)
+    if lead.device.type == "cpu":
+        return plain(*args)
+    raise ValueError(f"{name}: no implementation for device {lead.device}")
+
+
+def _fused_classify_cuda(x, w_dev, b, layout) -> torch.Tensor:
     p, d = x.shape
     r = w_dev.shape[1]
     hp, blk = layout.dev_head_pad, layout.dev_block
-    tensors = (x, w_dev, b)
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("fused_classify: all operands must be on one device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("fused_classify: x, w_dev and b must be float32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("fused_classify: operands must be contiguous")
-    if w_dev.shape != (d, r) or b.shape != (r,):
-        raise ValueError(
-            f"fused_classify: bad shapes x {tuple(x.shape)} "
-            f"w_dev {tuple(w_dev.shape)} b {tuple(b.shape)}"
-        )
+    f32 = torch.float32
+    _require("fused_classify", (x, w_dev, b), (f32, f32, f32), ((p, d), (d, r), (r,)),
+             aligned=(x,))
     if (d != layout.device_dim or hp % 32 or blk % 32
             or layout.num_bow_blocks > 15):
         raise ValueError(f"fused_classify: layout {layout} does not fit width {d}")
-    if x.data_ptr() % 16:
-        raise ValueError("fused_classify: x must be 16-byte aligned")
-    out = torch.empty((p, r), dtype=torch.float32, device=x.device)
-    if p == 0:
-        return out
-    lib = _cuda.fused_classify_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tspn_fused_classify_launch(
-            x.data_ptr(), w_dev.data_ptr(), b.data_ptr(), out.data_ptr(),
-            p, r, d, hp, blk, ctypes.c_void_p(stream),
-        )
-    _cuda.check(err, "tspn_fused_classify_launch")
-    LAUNCHES["fused_classify"] += 1
+    out = torch.empty((p, r), dtype=f32, device=x.device)
+    if p:
+        _launch("fused_classify", "fused_classify_library", "tspn_fused_classify_launch",
+                x.device, (x.data_ptr(), w_dev.data_ptr(), b.data_ptr(), out.data_ptr(),
+                           p, r, d, hp, blk))
     return out
 
 
@@ -517,54 +550,233 @@ def normalize_classify_q8s_plain(
 
 
 def _q8s_cuda(q, scales, qw_t, sw, b, geom) -> torch.Tensor:
-    from tspn_tpu_torch.ops import _cuda
-
     p, d = q.shape
     r = qw_t.shape[0]
-    hp, nb, blk = geom.dev_head_pad, geom.num_bow_blocks, geom.dev_block
-    tensors = (q, scales, qw_t, sw, b)
-    if any(t.device != q.device for t in tensors):
-        raise ValueError("q8s: all operands must be on one device")
-    if q.dtype != torch.int8 or qw_t.dtype != torch.int8:
-        raise TypeError("q8s: q and qw_t must be int8")
-    if any(t.dtype != torch.float32 for t in (scales, sw, b)):
-        raise TypeError("q8s: scales, sw and b must be float32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("q8s: operands must be contiguous")
-    if (qw_t.shape != (r, d) or scales.shape != (p, 16)
-            or sw.shape != (r,) or b.shape != (r,)):
-        raise ValueError(
-            f"q8s: bad shapes q {tuple(q.shape)} scales {tuple(scales.shape)} "
-            f"qw_t {tuple(qw_t.shape)} sw {tuple(sw.shape)} b {tuple(b.shape)}"
-        )
-    if d != geom.device_dim or hp % 64 or blk % 64 or nb > 15:
-        raise ValueError(f"q8s: geometry {geom} does not fit width {d}")
-    if q.data_ptr() % 16 or qw_t.data_ptr() % 16:
-        raise ValueError("q8s: q and qw_t must be 16-byte aligned")
-    out = torch.empty((p, r), dtype=torch.float32, device=q.device)
-    if p == 0:
-        return out
-    lib = _cuda.q8s_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.tspn_q8s_launch(
+    f32, i8 = torch.float32, torch.int8
+    _require("q8s", (q, scales, qw_t, sw, b), (i8, f32, i8, f32, f32),
+             ((p, d), (p, 16), (r, d), (r,), (r,)), aligned=(q, qw_t))
+    _require_geom("q8s", geom, d)
+    out = torch.empty((p, r), dtype=f32, device=q.device)
+    if p and r:
+        _launch("q8s", "q8s_library", "tspn_q8s_launch", q.device, (
             q.data_ptr(), scales.data_ptr(), qw_t.data_ptr(), sw.data_ptr(),
-            b.data_ptr(), out.data_ptr(), p, r, d, hp, blk,
-            ctypes.c_void_p(stream),
-        )
-    _cuda.check(err, "tspn_q8s_launch")
-    LAUNCHES["q8s"] += 1
+            b.data_ptr(), out.data_ptr(), p, r, d, geom.dev_head_pad, geom.dev_block))
     return out
 
 
 def normalize_classify_q8s(q, scales, qw_t, sw, b, geom) -> torch.Tensor:
     """int8 x int8 segmented scorer, (P, D) -> (P, R) f32: the kernel on a
     CUDA tensor, the plain version on a CPU tensor."""
-    if q.device.type == "cuda":
-        return _q8s_cuda(q, scales, qw_t, sw, b, geom)
-    if q.device.type == "cpu":
-        return normalize_classify_q8s_plain(q, scales, qw_t, sw, b, geom)
-    raise ValueError(f"q8s: no implementation for device {q.device}")
+    return _dispatch("q8s", q, _q8s_cuda, normalize_classify_q8s_plain,
+                     q, scales, qw_t, sw, b, geom)
+
+
+# ----------------------------------------- K1's variants, and the bf16 scorer
+PROBE_MODES = ("stream", "onedot", "blocks_noscale")
+PROBE_STREAM_ROWS = 32  # the rows that the probe's "stream" mode computes
+
+
+def q8_block_scales(q: torch.Tensor, head_scale: torch.Tensor, geom) -> torch.Tensor:
+    """``precompute_q8_scales`` in torch, on q's device -> (P, 16) f32:
+    col 0 the head scale, cols 1..nb 1/L1 of each int8 block (1 for an
+    empty block). The sums are exact integers and the quotient a true f32
+    division by a tensor (PyTorch on CUDA multiplies by the reciprocal of
+    a Python number), so it equals the numpy helper bit for bit."""
+    p = q.shape[0]
+    hp, nb, blk = geom.dev_head_pad, geom.num_bow_blocks, geom.dev_block
+    denom = (q[:, hp:].to(torch.int32).abs().reshape(p, nb, blk)
+             .sum(dim=-1).to(torch.float32))
+    one = torch.ones_like(denom)
+    out = torch.zeros((p, 16), dtype=torch.float32, device=q.device)
+    out[:, 0] = head_scale
+    out[:, 1 : 1 + nb] = one / torch.where(denom > 0, denom, one)
+    return out
+
+
+def normalize_classify_q8i8_plain(
+    q: torch.Tensor,           # (P, D) int8
+    head_scale: torch.Tensor,  # (P,) f32
+    qw_t: torch.Tensor,        # (R, D) int8, K-major
+    sw: torch.Tensor,          # (R,) f32
+    b: torch.Tensor,           # (R,) f32
+    geom,
+) -> torch.Tensor:
+    """Plain version of K4 (``normalize_classify_q8i8_pallas``): -> (P, R)
+    f32, K1's plain version fed ``q8_block_scales``. The kernel computes
+    the same scales in-kernel from the same integer sums, so it must
+    equal this bit for bit."""
+    return normalize_classify_q8s_plain(
+        q, q8_block_scales(q, head_scale, geom), qw_t, sw, b, geom)
+
+
+def weights_bf16_t(w_dev) -> torch.Tensor:
+    """K5's weight prep: device-layout weights (D, R) f32 -> (R, D) bf16,
+    K-major, rounded to nearest even as JAX's ``astype(jnp.bfloat16)``."""
+    w = torch.as_tensor(w_dev, dtype=torch.float32)
+    return w.to(torch.bfloat16).T.contiguous()
+
+
+def normalize_classify_q8_plain(
+    q: torch.Tensor,           # (P, D) int8
+    head_scale: torch.Tensor,  # (P,) f32
+    w_bf16_t: torch.Tensor,    # (R, D) bf16, K-major (weights_bf16_t)
+    b: torch.Tensor,           # (R,) f32
+    geom,
+) -> torch.Tensor:
+    """Plain version of K5 (``normalize_classify_q8_pallas``): -> (P, R) f32
+
+        (f32(head . w) * head_scale + f32(block_k . w) * inv_k ...) + b
+
+    with inv from ``q8_block_scales``, folded in that order. Each segment
+    is summed in float64, which is exact for int8 x bf16 unless the
+    weights' magnitudes span more than about 2^30, then rounded to f32.
+    The kernel sums each segment in f32 in another order, so it agrees
+    with this within a tolerance of the summed terms, not bit for bit."""
+    hp, nb, blk = geom.dev_head_pad, geom.num_bow_blocks, geom.dev_block
+    qd = q.to(torch.float64)
+    wd = w_bf16_t.to(torch.float64)
+
+    def seg(lo, hi):
+        return (qd[:, lo:hi] @ wd[:, lo:hi].T).to(torch.float32)
+
+    inv = q8_block_scales(q, head_scale, geom)
+    acc = seg(0, hp) * head_scale[:, None]
+    for k in range(nb):
+        lo = hp + k * blk
+        acc = acc + seg(lo, lo + blk) * inv[:, k + 1 : k + 2]
+    return acc + b
+
+
+def normalize_classify_q8t_plain(
+    xt: torch.Tensor,        # (D, P) int8, transposed rows
+    scales_t: torch.Tensor,  # (16, P) f32, precompute_q8_scales transposed
+    qw_t: torch.Tensor,      # (R, D) int8, K-major
+    sw: torch.Tensor,        # (R,) f32
+    b: torch.Tensor,         # (R,) f32
+    geom,
+) -> torch.Tensor:
+    """Plain version of K6 (``normalize_classify_q8t_pallas``): -> (R, P)
+    f32, K1's arithmetic on the transposed operands. The segment sums are
+    exact in float64 and every f32 step is K1's, so this equals the plain
+    K1 transposed bit for bit, and the kernel must equal this."""
+    hp, nb, blk = geom.dev_head_pad, geom.num_bow_blocks, geom.dev_block
+    xd = xt.to(torch.float64)
+    wd = qw_t.to(torch.float64)
+
+    def seg(lo, hi):
+        return (wd[:, lo:hi] @ xd[lo:hi]).to(torch.float32)
+
+    acc = seg(0, hp) * scales_t[0:1]
+    for k in range(nb):
+        lo = hp + k * blk
+        acc = acc + seg(lo, lo + blk) * scales_t[k + 1 : k + 2]
+    return acc * sw[:, None] + b[:, None]
+
+
+def _probe_rows(r: int, mode: str) -> int:
+    if mode not in PROBE_MODES:
+        raise ValueError(f"pair_probe: mode {mode!r} is not one of {PROBE_MODES}")
+    return min(r, PROBE_STREAM_ROWS) if mode == "stream" else r
+
+
+def pair_probe_plain(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
+    """Plain version of the probe of ``tools/bench_pair_kernels.py``: x (D,
+    P) int8, w (R, D) int8 -> (R, P) int32, the exact product (summed in
+    float64, exact: |sum| <= 128^2 * D < 2^31). ``stream`` computes
+    rows r < 32 and leaves the rest zero; ``onedot`` and
+    ``blocks_noscale`` (one dot, or the sum of its segment dots) give the
+    same integers, the full product."""
+    live = _probe_rows(w.shape[0], mode)
+    out = torch.zeros((w.shape[0], x.shape[1]), dtype=torch.int32, device=x.device)
+    out[:live] = (w[:live].to(torch.float64) @ x.to(torch.float64)).to(torch.int32)
+    return out
+
+
+def _q8i8_cuda(q, head_scale, qw_t, sw, b, geom) -> torch.Tensor:
+    p, d = q.shape
+    r = qw_t.shape[0]
+    f32, i8 = torch.float32, torch.int8
+    _require("q8i8", (q, head_scale, qw_t, sw, b), (i8, f32, i8, f32, f32),
+             ((p, d), (p,), (r, d), (r,), (r,)), aligned=(q, qw_t))
+    _require_geom("q8i8", geom, d)
+    out = torch.empty((p, r), dtype=f32, device=q.device)
+    if p and r:
+        _launch("q8i8", "q8i8_library", "tspn_q8i8_launch", q.device, (
+            q.data_ptr(), head_scale.data_ptr(), qw_t.data_ptr(), sw.data_ptr(),
+            b.data_ptr(), out.data_ptr(), p, r, d, geom.dev_head_pad, geom.dev_block))
+    return out
+
+
+def _q8_bf16_cuda(q, head_scale, w_bf16_t, b, geom) -> torch.Tensor:
+    p, d = q.shape
+    r = w_bf16_t.shape[0]
+    f32 = torch.float32
+    _require("q8bf", (q, head_scale, w_bf16_t, b), (torch.int8, f32, torch.bfloat16, f32),
+             ((p, d), (p,), (r, d), (r,)), aligned=(q, w_bf16_t))
+    _require_geom("q8bf", geom, d)
+    out = torch.empty((p, r), dtype=f32, device=q.device)
+    if p and r:
+        _launch("q8bf", "q8_bf16_library", "tspn_q8_bf16_launch", q.device, (
+            q.data_ptr(), head_scale.data_ptr(), w_bf16_t.data_ptr(), b.data_ptr(),
+            out.data_ptr(), p, r, d, geom.dev_head_pad, geom.dev_block))
+    return out
+
+
+def _q8t_cuda(xt, scales_t, qw_t, sw, b, geom) -> torch.Tensor:
+    d, p = xt.shape
+    r = qw_t.shape[0]
+    f32, i8 = torch.float32, torch.int8
+    _require("q8t", (xt, scales_t, qw_t, sw, b), (i8, f32, i8, f32, f32),
+             ((d, p), (16, p), (r, d), (r,), (r,)), aligned=(xt, qw_t))
+    _require_geom("q8t", geom, d)
+    out = torch.empty((r, p), dtype=f32, device=xt.device)
+    if p and r:
+        _launch("q8t", "q8t_library", "tspn_q8t_launch", xt.device, (
+            xt.data_ptr(), scales_t.data_ptr(), qw_t.data_ptr(), sw.data_ptr(),
+            b.data_ptr(), out.data_ptr(), p, r, d, geom.dev_head_pad, geom.dev_block))
+    return out
+
+
+def _pair_probe_cuda(x, w, mode) -> torch.Tensor:
+    d, p = x.shape
+    r = w.shape[0]
+    live = _probe_rows(r, mode)
+    _require("q8_probe", (x, w), (torch.int8, torch.int8), ((d, p), (r, d)),
+             aligned=(x, w))
+    if d % 64 or d >= 1 << 17:
+        raise ValueError(f"q8_probe: width {d} is not a multiple of 64 below 2^17")
+    out = torch.empty((r, p), dtype=torch.int32, device=x.device)
+    if p and r:
+        _launch("q8_probe", "q8_probe_library", "tspn_q8_probe_launch", x.device,
+                (x.data_ptr(), w.data_ptr(), out.data_ptr(), p, r, d, live))
+    return out
+
+
+def normalize_classify_q8i8(q, head_scale, qw_t, sw, b, geom) -> torch.Tensor:
+    """K4, int8 x int8 with in-kernel block scales, (P, D) -> (P, R) f32:
+    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    return _dispatch("q8i8", q, _q8i8_cuda, normalize_classify_q8i8_plain,
+                     q, head_scale, qw_t, sw, b, geom)
+
+
+def normalize_classify_q8(q, head_scale, w_bf16_t, b, geom) -> torch.Tensor:
+    """K5, int8 x bf16 with in-kernel block scales, (P, D) -> (P, R) f32:
+    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    return _dispatch("q8bf", q, _q8_bf16_cuda, normalize_classify_q8_plain,
+                     q, head_scale, w_bf16_t, b, geom)
+
+
+def normalize_classify_q8t(xt, scales_t, qw_t, sw, b, geom) -> torch.Tensor:
+    """K6, K1 on transposed operands, (D, P) -> (R, P) f32: the kernel on
+    a CUDA tensor, the plain version on a CPU tensor."""
+    return _dispatch("q8t", xt, _q8t_cuda, normalize_classify_q8t_plain,
+                     xt, scales_t, qw_t, sw, b, geom)
+
+
+def pair_probe(x, w, mode: str) -> torch.Tensor:
+    """The raw int8 probe, x (D, P) and w (R, D) -> (R, P) int32: the
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    return _dispatch("q8_probe", x, _pair_probe_cuda, pair_probe_plain, x, w, mode)
 
 
 def factored_classify_q8_batched(
@@ -641,57 +853,29 @@ def factored_classify_q8_fused_plain(
 
 
 def _q8f_fused_cuda(rel_q, s, pairs, qw_rel_t, sw, b, a) -> torch.Tensor:
-    from tspn_tpu_torch.ops import _cuda
-
     bsz, p, d = rel_q.shape
     r = qw_rel_t.shape[0]
     n = a.shape[1]
-    tensors = (rel_q, s, pairs, qw_rel_t, sw, b, a)
-    if any(t.device != rel_q.device for t in tensors):
-        raise ValueError("q8f_fused: all operands must be on one device")
-    if rel_q.dtype != torch.int8 or qw_rel_t.dtype != torch.int8:
-        raise TypeError("q8f_fused: rel_q and qw_rel_t must be int8")
-    if pairs.dtype != torch.int32:
-        raise TypeError("q8f_fused: pairs must be int32")
-    if any(t.dtype != torch.float32 for t in (s, sw, b, a)):
-        raise TypeError("q8f_fused: s, sw, b and a must be float32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("q8f_fused: operands must be contiguous")
-    if (qw_rel_t.shape != (r, d) or s.shape != (bsz, p) or pairs.shape != (bsz, p, 2)
-            or sw.shape != (r,) or b.shape != (r,) or a.shape != (bsz, n, 2 * r)):
-        raise ValueError(
-            f"q8f_fused: bad shapes rel_q {tuple(rel_q.shape)} s {tuple(s.shape)} "
-            f"pairs {tuple(pairs.shape)} qw_rel_t {tuple(qw_rel_t.shape)} "
-            f"sw {tuple(sw.shape)} b {tuple(b.shape)} a {tuple(a.shape)}"
-        )
+    f32, i8 = torch.float32, torch.int8
+    _require("q8f_fused", (rel_q, s, pairs, qw_rel_t, sw, b, a),
+             (i8, f32, torch.int32, i8, f32, f32, f32),
+             ((bsz, p, d), (bsz, p), (bsz, p, 2), (r, d), (r,), (r,), (bsz, n, 2 * r)),
+             aligned=(rel_q, qw_rel_t))
     if d % 128:
         raise ValueError(f"q8f_fused: width {d} is not a multiple of 128")
-    if rel_q.data_ptr() % 16 or qw_rel_t.data_ptr() % 16:
-        raise ValueError("q8f_fused: rel_q and qw_rel_t must be 16-byte aligned")
-    out = torch.empty((bsz, p, r), dtype=torch.float32, device=rel_q.device)
-    if bsz * p == 0:
-        return out
-    lib = _cuda.q8f_fused_library()
-    with torch.cuda.device(rel_q.device):
-        stream = torch.cuda.current_stream(rel_q.device).cuda_stream
-        err = lib.tspn_q8f_fused_launch(
+    out = torch.empty((bsz, p, r), dtype=f32, device=rel_q.device)
+    if bsz * p:
+        _launch("q8f_fused", "q8f_fused_library", "tspn_q8f_fused_launch", rel_q.device, (
             rel_q.data_ptr(), s.data_ptr(), pairs.data_ptr(), qw_rel_t.data_ptr(),
-            sw.data_ptr(), b.data_ptr(), a.data_ptr(), out.data_ptr(),
-            bsz * p, p, n, r, d, ctypes.c_void_p(stream),
-        )
-    _cuda.check(err, "tspn_q8f_fused_launch")
-    LAUNCHES["q8f_fused"] += 1
+            sw.data_ptr(), b.data_ptr(), a.data_ptr(), out.data_ptr(), bsz * p, p, n, r, d))
     return out
 
 
 def q8f_fused(rel_q, s, pairs, qw_rel_t, sw, b, a) -> torch.Tensor:
     """Factored rel pass with the A-table add, (B, P, D) int8 -> (B, P, R)
     f32: the kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if rel_q.device.type == "cuda":
-        return _q8f_fused_cuda(rel_q, s, pairs, qw_rel_t, sw, b, a)
-    if rel_q.device.type == "cpu":
-        return factored_classify_q8_fused_plain(rel_q, s, pairs, qw_rel_t, sw, b, a)
-    raise ValueError(f"q8f_fused: no implementation for device {rel_q.device}")
+    return _dispatch("q8f_fused", rel_q, _q8f_fused_cuda, factored_classify_q8_fused_plain,
+                     rel_q, s, pairs, qw_rel_t, sw, b, a)
 
 
 def factored_classify_q8_fused(
