@@ -87,12 +87,30 @@ Phases, in order; any failure raises and the exit code is nonzero:
     the shapes (its time is a yardstick; the port never calls it);
 18. run the ported tool, python -m tspn_tpu_torch.tools.bench_pair_kernels,
     at its default 96 segments: K1, the probe in its three modes, K6, one
-    launch per timed call of each leg.
+    launch per timed call of each leg;
+19. report the build of csrc/rel.cu (Kr, Kn and Ks4, the kernels of the
+    rel-pass probe tools);
+20. hold Kr, Kn and Ks4 against their plain versions (run in chunks of
+    8192 rows) at the tools' geometry (95,232 rows of 3,072 int8 columns,
+    R 132), at a ragged 95,155 rows and at 333 rows (a VidOR segment's
+    pairs), each with zero rows: Kr int32, Kn and Ks4 equal to the int64
+    products (Ks4's of the wrapped weights), Kr f32 equal to its plain
+    version, Kr side equal to K1's plain version at rel_geom in every
+    schedule (row grid with 2, 3 and 4 stages, persistent with 2 and 4,
+    split-K by 2 and 4, the 128-wide sidecar), so split-K equals no
+    split; at the tools' geometry Kr side equal to K1's kernel output,
+    and each kernel, its plain version, K1 (dp4a) and torch._int_mm (a
+    yardstick the port never calls) timed, with the bound beside each;
+21. run the four ported rel tools, python -m
+    tspn_tpu_torch.tools.bench_rel_{steps,pipeline,probe,int4}, at their
+    defaults as one main-path group: every leg is checked against its
+    plain version once and timed, so each kernel leg launches once for its
+    check and once per timed call, and Kr, Kn and Ks4 each launch.
 
 Convolutions and matrix products run in full f32 (TF32 off throughout).
 The kernel launches of the main path are counted from zero before each
 main-path phase group and read right after it: phases 5-6, 9-10, 11-12,
-15 and 18. K4 and K5 run on no main path (the JAX package has no caller
+15, 18 and 21. K4 and K5 run on no main path (the JAX package has no caller
 for them either); their check launches stand in their entries. It prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero
 before printing any result.
@@ -160,6 +178,14 @@ DET_TIE = 1e-5
 VARIANT_CASES = (("tool", 35, NUM_SEGMENTS * 992), ("ragged", 35, NUM_SEGMENTS * 992 - 77),
                  ("vidor", 80, 333))
 VARIANT_CHUNK = 8192  # rows per plain call: a float64 copy of 95k x 11264 is 8.6 GB
+# Kr, Kn and Ks4 checks: (name, rows); the tool geometry is that of the
+# tools/bench_rel_*.py probes, D 3072 (rel_geom) and R 132
+REL_CASES = (("tool", NUM_SEGMENTS * 992), ("ragged", NUM_SEGMENTS * 992 - 77), ("vidor", 333))
+# Kr side schedules: (name, stages, schedule, ks, sidecar width)
+REL_SCHEDULES = (("grid2", 2, "grid", 1, 16), ("grid3", 3, "grid", 1, 16),
+                 ("grid4", 4, "grid", 1, 16), ("persistent2", 2, "persistent", 1, 16),
+                 ("persistent4", 4, "persistent", 1, 16), ("ksplit2", 2, "grid", 2, 16),
+                 ("ksplit4", 2, "grid", 4, 16), ("persistent2_side128", 2, "persistent", 1, 128))
 
 
 def log(msg: str) -> None:
@@ -198,7 +224,8 @@ def phase_kernel_check(dev) -> dict:
         plain_ms = cuda_median_ms(lambda: pw.normalize_classify_q8s_plain(*args))
         report[name] = {"rows": p, "width": d, "cols": r, "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms,
-                        **bound(args[:5], out, 2.0 * p * d * r, "int8")}
+                        **bound((args[0], args[1][:, :geom.num_bow_blocks + 1], *args[2:5]),
+                                out, 2.0 * p * d * r, "int8")}
         log(f"q8s {name}: P={p} D={d} R={r} equal=True "
             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
             f"bound {report[name]['bound_ms']:.4f} ms ({report[name]['bound_by']})")
@@ -1056,14 +1083,190 @@ def phase_tool(dev) -> dict:
     return result
 
 
+def rel_inputs(gen, p: int, dev) -> dict:
+    """Operands of Kr, Kn and Ks4: int8 rows in [-128, 127] and int4 rows
+    in [-8, 7] (the last 50 rows and every 13th row all zero), the int4
+    rows packed, a (P, 16) sidecar and its (P, 128) padding, int8 weights
+    (R 132) K-major, split into even and odd columns and wrapped to int4
+    and packed, and f32 sw and b."""
+    from tspn_tpu_torch.ops import pairwise as pw
+    from tspn_tpu_torch.ops import rel
+
+    d, r = pw.rel_geom().device_dim, NUM_PREDICATES
+    x = torch.randint(-128, 128, (p, d), generator=gen, device=dev, dtype=torch.int8)
+    x4 = torch.randint(-8, 8, (p, d), generator=gen, device=dev, dtype=torch.int8)
+    for t in (x, x4):
+        t[-50:] = 0
+        t[::13] = 0
+    s16 = torch.rand((p, 16), generator=gen, device=dev) / 64
+    s128 = torch.zeros((p, 128), device=dev)
+    s128[:, :16] = s16
+    w_t = torch.randint(-127, 128, (r, d), generator=gen, device=dev, dtype=torch.int8)
+    w_even, w_odd = rel.split_even_odd(w_t)
+    w4 = rel.wrap_int4(w_t)
+    return {"x": x, "x4": x4, "xp": rel.pack_int4(x4), "s16": s16, "s128": s128, "w_t": w_t,
+            "w_even": w_even, "w_odd": w_odd, "w4": w4, "w4p": rel.pack_int4(w4),
+            "sw": torch.rand((r,), generator=gen, device=dev) / 127,
+            "b": torch.randn((r,), generator=gen, device=dev)}
+
+
+def exact_product(a, b_t, p: int):
+    """a @ b_t.T as int64, summed in float64 (exact) a chunk of rows at a time."""
+    return in_chunks(p, 0, lambda s: (a[s].double() @ b_t.double().T).long())
+
+
+def phase_rel_check(dev) -> dict:
+    """Kr, Kn and Ks4 against their plain versions at the tools' geometry,
+    a ragged P and 333 rows: the int32 results equal the int64 products,
+    Kr f32 its plain version, Kr side K1's plain version in every
+    schedule; at the tools' geometry kernel, plain, K1 and torch._int_mm
+    timed, with their bounds."""
+    from tspn_tpu_torch.ops import pairwise as pw
+    from tspn_tpu_torch.ops import rel
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    geom = pw.rel_geom()
+    before = dict(rel.LAUNCHES)
+    report = {"rel_s8": {}, "rel_s4x8": {}, "rel_s4x4": {}}
+    for name, p in REL_CASES:
+        t = rel_inputs(gen, p, dev)
+        x, w_t, s16, sw, b = t["x"], t["w_t"], t["s16"], t["sw"], t["b"]
+        ops = 2.0 * p * x.shape[1] * NUM_PREDICATES
+        kr = lambda: rel.rel_s8(x, w_t)
+        kn = lambda: rel.rel_s4x8(t["xp"], t["w_even"], t["w_odd"])
+        ks4 = lambda: rel.rel_s4x4(t["xp"], t["w4p"])
+        plain = {
+            "rel_s8": lambda: in_chunks(p, 0, lambda s: rel.rel_s8_plain(x[s], w_t)),
+            "rel_s4x8": lambda: in_chunks(p, 0, lambda s: rel.rel_s4x8_plain(
+                t["xp"][s], t["w_even"], t["w_odd"])),
+            "rel_s4x4": lambda: in_chunks(p, 0, lambda s: rel.rel_s4x4_plain(
+                t["xp"][s], t["w4p"])),
+        }
+        wants = {"rel_s8": exact_product(x, w_t, p), "rel_s4x8": exact_product(t["x4"], w_t, p),
+                 "rel_s4x4": exact_product(t["x4"], t["w4"], p)}
+        for key, fn in (("rel_s8", kr), ("rel_s4x8", kn), ("rel_s4x4", ks4)):
+            out = fn()
+            torch.cuda.synchronize()
+            if out.shape != (p, NUM_PREDICATES) or out.dtype != torch.int32:
+                raise AssertionError(f"{key} {name}: bad output {out.dtype} {tuple(out.shape)}")
+            err = int((out.long() - wants[key]).abs().max())
+            if not torch.equal(out.long(), wants[key]):
+                raise AssertionError(f"{key} {name}: kernel != int64 product, max |err| {err}")
+            report[key][name] = {"rows": p, "width": x.shape[1], "cols": NUM_PREDICATES,
+                                 "max_abs_err": err}
+        del wants
+        ref_f32 = in_chunks(p, 0, lambda s: rel.rel_s8_plain(x[s], w_t, None, sw, b,
+                                                             epilogue="f32"))
+        out = rel.rel_s8(x, w_t, None, sw, b, epilogue="f32")
+        if not torch.equal(out, ref_f32):
+            raise AssertionError(f"rel_s8 f32 {name}: kernel != plain, max |err| "
+                                 f"{(out - ref_f32).abs().max().item()}")
+        del ref_f32
+        ref_side = in_chunks(p, 0, lambda s: pw.normalize_classify_q8s_plain(
+            x[s], s16[s], w_t, sw, b, geom))
+        sides = {}
+        for label, stages, schedule, ks, width in REL_SCHEDULES:
+            s = s16 if width == 16 else t["s128"]
+            sides[label] = lambda s=s, k=(stages, schedule, ks): rel.rel_s8(
+                x, w_t, s, sw, b, epilogue="side", stages=k[0], schedule=k[1], ks=k[2])
+            out = sides[label]()
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref_side):
+                raise AssertionError(f"rel_s8 side {label} {name}: kernel != K1's plain "
+                                     f"version, max |err| {(out - ref_side).abs().max().item()}")
+        del out, ref_side
+        report["rel_s8"][name]["side_schedules_equal_k1_plain"] = [lbl for lbl, *_ in REL_SCHEDULES]
+        if name == "tool":
+            q8s_args = (x, s16, w_t, sw, b, geom)
+            timed = {"rel_s8": (kr, (x, w_t), ops), "rel_s4x8": (kn, (t["xp"], t["w_even"],
+                                                                      t["w_odd"]), 0.0),
+                     "rel_s4x4": (ks4, (t["xp"], t["w4p"]), 0.0)}
+            for key, (fn, operands, leg_ops) in timed.items():
+                out = fn()
+                report[key][name].update({
+                    "ms": cuda_median_ms(fn), "plain_ms": cuda_median_ms(plain[key], iters=3),
+                    **bound(operands, out, leg_ops, "int8"), "library_ms": None})
+            side_out = sides["grid3"]()
+            if not torch.equal(side_out, pw.normalize_classify_q8s(*q8s_args)):
+                raise AssertionError("rel_s8 side tool: Kr != K1 on the same rows")
+            report["rel_s8"][name].update({
+                "f32_ms": cuda_median_ms(lambda: rel.rel_s8(x, w_t, None, sw, b,
+                                                            epilogue="f32")),
+                "side_ms": {label: cuda_median_ms(fn) for label, fn in sides.items()},
+                "side_plain_ms": cuda_median_ms(lambda: in_chunks(
+                    p, 0, lambda s: rel.rel_s8_plain(x[s], w_t, s16[s], sw, b,
+                                                     epilogue="side")), iters=3),
+                "side_bound": bound((x, s16[:, :1], w_t, sw, b), side_out, ops, "int8"),
+                "k1_q8s_ms": cuda_median_ms(lambda: pw.normalize_classify_q8s(*q8s_args)),
+            })
+            # one PyTorch call of Kr's int32 product, never used by the port:
+            # W padded to 136 columns (torch._int_mm takes N % 8 == 0)
+            w_pad = torch.zeros((x.shape[1], 136), dtype=torch.int8, device=dev)
+            w_pad[:, :NUM_PREDICATES] = w_t.T
+            lib = torch._int_mm(x, w_pad)[:, :NUM_PREDICATES]
+            report["rel_s8"][name]["library_equal"] = torch.equal(lib, kr())
+            report["rel_s8"][name]["library_ms"] = cuda_median_ms(lambda: torch._int_mm(x, w_pad))
+            del out, side_out, lib, w_pad
+        del t
+        torch.cuda.empty_cache()
+        for key in report:
+            c = report[key][name]
+            log(f"{key} {name}: P={c['rows']} D={c['width']} R={c['cols']} equal=True"
+                + (f" kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms bound "
+                   f"{c['bound_ms']:.4f} ms ({c['bound_by']}) library {c['library_ms']}"
+                   if "ms" in c else ""))
+    tool = report["rel_s8"]["tool"]
+    log(f"rel_s8 tool: f32 {tool['f32_ms']:.4f} ms; side by schedule {json.dumps(tool['side_ms'])}"
+        f" (plain {tool['side_plain_ms']:.4f} ms, bound {tool['side_bound']['bound_ms']:.4f} ms);"
+        f" K1 (dp4a) {tool['k1_q8s_ms']:.4f} ms; torch._int_mm {tool['library_ms']:.4f} ms,"
+        f" equal {tool['library_equal']}")
+    report["check_launches"] = {k: rel.LAUNCHES[k] - before[k] for k in rel.LAUNCHES}
+    log(f"rel checks: launches {report['check_launches']}")
+    return report
+
+
+def phase_rel_tools(dev) -> dict:
+    """The four ported rel tools at their defaults; each leg checked once
+    and timed."""
+    from tspn_tpu_torch.tools import (bench_rel_int4, bench_rel_pipeline, bench_rel_probe,
+                                      bench_rel_steps)
+
+    d = ["--device", str(dev)]
+    results = {"steps": bench_rel_steps.main(d), "pipeline": bench_rel_pipeline.main(d),
+               "probe": bench_rel_probe.main(d)}
+    legs = {"steps": 5, "pipeline": 7, "probe": 6}
+    for tool, n in legs.items():
+        if len(results[tool]["legs"]) != n or results[tool]["pairs"] != NUM_SEGMENTS * 992:
+            raise AssertionError(f"bench_rel_{tool}: legs {list(results[tool]['legs'])}")
+    int4 = bench_rel_int4.main(d)
+    if not all(int4[f"{leg}_exact"] for leg in ("i8xi8", "i4xi8", "i4xi4")):
+        raise AssertionError(f"bench_rel_int4: {int4}")
+    results["int4"] = int4
+    return results
+
+
+def rel_tool_launches(results: dict) -> dict:
+    """Launches the rel tools must make: one check call and one call per
+    timed call (WARMUP + ITERS * REPS) of each kernel leg."""
+    per_leg = 1 + WARMUP + ITERS * REPS
+    want = {}
+    for tool in ("steps", "pipeline", "probe"):
+        for leg in results[tool]["legs"].values():
+            if leg["kernel"]:
+                want[leg["kernel"]] = want.get(leg["kernel"], 0) + per_leg
+    for kernel in ("rel_s8", "rel_s4x8", "rel_s4x4"):  # i8xi8, i4xi8, i4xi4
+        want[kernel] = want.get(kernel, 0) + per_leg
+    return want
+
+
 def build_kernels() -> None:
-    """The five sources' nvcc builds (K1, K4, K6 and the probe share
-    q8s.cu), one per source, started together."""
+    """The six sources' nvcc builds (K1, K4, K6 and the probe share
+    q8s.cu; Kr, Kn and Ks4 rel.cu), one per source, started together."""
     from tspn_tpu_torch.ops import _cuda
 
     libraries = (_cuda.q8s_library, _cuda.q8f_fused_library,
                  _cuda.fused_classify_library, _cuda.roi_align_library,
-                 _cuda.q8_bf16_library)
+                 _cuda.q8_bf16_library, _cuda.rel_library)
     with ThreadPoolExecutor(len(libraries)) as pool:
         for f in [pool.submit(lib) for lib in libraries]:
             f.result()
@@ -1083,12 +1286,14 @@ def main_path(name: str, fn):
     """Drive one group of main-path phases with every launch count set to
     0 just before and read just after -> (fn's result, counts)."""
     from tspn_tpu_torch.ops import pairwise as pw
+    from tspn_tpu_torch.ops import rel
     from tspn_tpu_torch.ops import roi_align as ra
 
     pw.reset_launches()
     ra.reset_launches()
+    rel.reset_launches()
     result = fn()
-    counts = {**pw.LAUNCHES, **ra.LAUNCHES}
+    counts = {**pw.LAUNCHES, **ra.LAUNCHES, **rel.LAUNCHES}
     log(f"main path {name}: launches {counts}")
     return result, counts
 
@@ -1097,8 +1302,9 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  checks: dict, timed: str, **extra) -> dict:
     """One entry of the kernels line: the largest error over the checked
     geometries, and the times and bound at the geometry ``timed``. Only
-    the probe has a library time (``torch._int_mm``, where it accepts the
-    shapes): no single PyTorch call computes the other kernels' functions
+    the probe and Kr (int32) have a library time (``torch._int_mm``, where
+    it accepts the shapes): PyTorch has no int4 product for Kn and Ks4,
+    and no single PyTorch call computes the other kernels' functions
     (they scale segments of an int32 or bf16 product by per-row scales;
     for RoIAlign, ``F.grid_sample``'s zero padding splits the weight at the
     border where torchvision's rule clamps [-1, 0] to index 0 at full
@@ -1203,16 +1409,26 @@ def main() -> int:
     want_tool = {"q8s": per_leg, "q8_probe": 3 * per_leg, "q8t": per_leg}
     if {k: v for k, v in counts_tool.items() if v} != want_tool:
         raise AssertionError(f"bench_pair_kernels launches {counts_tool}, want {want_tool}")
-    for kernel, counts in (("q8s", (counts_int8, counts_ppn, counts_tool)),
+
+    report_build("rel")
+    rel_checks = phase_rel_check(dev)
+    rel_tools, counts_rel = main_path("bench_rel tools", lambda: phase_rel_tools(dev))
+    want_rel = rel_tool_launches(rel_tools)
+    if {k: v for k, v in counts_rel.items() if v} != want_rel:
+        raise AssertionError(f"bench_rel tools launches {counts_rel}, want {want_rel}")
+    for kernel, counts in (("q8s", (counts_int8, counts_ppn, counts_tool, counts_rel)),
                            ("q8f_fused", (counts_int8, counts_ppn)),
                            ("fused_classify", (counts_fused, counts_ppn)),
                            ("roi_align", (counts_det,)),
-                           ("q8t", (counts_tool,)), ("q8_probe", (counts_tool,))):
+                           ("q8t", (counts_tool,)), ("q8_probe", (counts_tool,)),
+                           ("rel_s8", (counts_rel,)), ("rel_s4x8", (counts_rel,)),
+                           ("rel_s4x4", (counts_rel,))):
         if any(c[kernel] == 0 for c in counts):
             raise AssertionError(f"a main-path phase launched no {kernel} kernel")
-    all_counts = (counts_int8, counts_fused, counts_ppn, counts_det, counts_tool)
+    all_counts = (counts_int8, counts_fused, counts_ppn, counts_det, counts_tool, counts_rel)
     launches = {k: sum(c[k] for c in all_counts) for k in counts_int8}
     checked = variant_checks.pop("check_launches")
+    rel_checked = rel_checks.pop("check_launches")
 
     log(smi)
     log(json.dumps({"serve": serve, "train_fused": train, "train_fused_ppn": train_ppn,
@@ -1221,10 +1437,13 @@ def main() -> int:
                     "roi_align_geometries": k7_checks,
                     "variant_geometries": variant_checks, "variant_check_launches": checked,
                     "bench_pair_kernels": tool,
+                    "rel_geometries": rel_checks, "rel_check_launches": rel_checked,
+                    "bench_rel_tools": rel_tools,
                     "main_path_launches": {"int8_serve": counts_int8,
                                            "fused": counts_fused, "ppn": counts_ppn,
                                            "detector": counts_det,
-                                           "bench_pair_kernels": counts_tool}}))
+                                           "bench_pair_kernels": counts_tool,
+                                           "bench_rel_tools": counts_rel}}))
     log(json.dumps({"kernels": [
         kernel_entry("q8s", "tspn_tpu_torch/csrc/q8s.cu",
                      "tspn_tpu/ops/pairwise.py:481", launches["q8s"], checks, "rel"),
@@ -1250,6 +1469,18 @@ def main() -> int:
                      "tools/bench_pair_kernels.py:111", launches["q8_probe"],
                      variant_checks["q8_probe"], "tool", check_launches=checked["q8_probe"],
                      library_refused=variant_checks["q8_probe"]["tool"].get("library_refused")),
+        kernel_entry("rel_s8", "tspn_tpu_torch/csrc/rel.cu",
+                     "tools/bench_rel_steps.py:91,102,113; tools/bench_rel_pipeline.py:91,155,207;"
+                     " tools/bench_rel_probe.py:69,130,243; tools/bench_rel_int4.py:63,76",
+                     launches["rel_s8"], rel_checks["rel_s8"], "tool",
+                     check_launches=rel_checked["rel_s8"]),
+        kernel_entry("rel_s4x8", "tspn_tpu_torch/csrc/rel.cu",
+                     "tools/bench_rel_probe.py:166,276; tools/bench_rel_int4.py:63,76",
+                     launches["rel_s4x8"], rel_checks["rel_s4x8"], "tool",
+                     check_launches=rel_checked["rel_s4x8"]),
+        kernel_entry("rel_s4x4", "tspn_tpu_torch/csrc/rel.cu", "tools/bench_rel_int4.py:63,76",
+                     launches["rel_s4x4"], rel_checks["rel_s4x4"], "tool",
+                     check_launches=rel_checked["rel_s4x4"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -111,6 +111,10 @@ def roi_align_library() -> ctypes.CDLL:
     return _bound("roi_align", "tspn_roi_align_launch", 4, 8)
 
 
+def rel_library() -> ctypes.CDLL:
+    return _bound("rel", "tspn_rel_launch", 9, 9)
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a C entry point."""
     if err != 0:

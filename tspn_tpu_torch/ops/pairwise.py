@@ -386,9 +386,11 @@ def _require_geom(name: str, geom, d: int) -> None:
         raise ValueError(f"{name}: geometry {geom} does not fit width {d}")
 
 
-def _launch(key: str, library: str, entry: str, device, args: tuple) -> None:
+def _launch(key: str, library: str, entry: str, device, args: tuple,
+            counts: dict = LAUNCHES) -> None:
     """Call the C entry ``entry`` of ``_cuda.<library>()`` with ``args`` on
-    the current stream of ``device``, raise on its error, count it."""
+    the current stream of ``device``, raise on its error, count it in
+    ``counts[key]``."""
     from tspn_tpu_torch.ops import _cuda
 
     lib = getattr(_cuda, library)()
@@ -396,7 +398,7 @@ def _launch(key: str, library: str, entry: str, device, args: tuple) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
     _cuda.check(err, entry)
-    LAUNCHES[key] += 1
+    counts[key] += 1
 
 
 def _dispatch(name: str, lead: torch.Tensor, kernel, plain, *args) -> torch.Tensor:
