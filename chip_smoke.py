@@ -5,7 +5,7 @@
 Phases, in order; any failure raises and the exit code is nonzero:
 
 1. report the card (nvidia-smi name and power limit) and versions;
-2. build the kernels from their five sources with nvcc, one build per
+2. build the kernels from their eight sources with nvcc, one build per
    source, all side by side (a fresh checkout always builds; a second run
    loads the builds), and report the q8s build (tspn_tpu_torch/csrc/q8s.cu,
    which holds K1, K4, K6 and the probe);
@@ -43,10 +43,11 @@ Phases, in order; any failure raises and the exit code is nonzero:
    apart from entries whose score lies within 1e-6 of another's;
 10. train fused: 24 steps over the same 48 labeled segments (batch 8,
     buckets [8, 16, 24, 32], Adam with warm-up and both milestones inside
-    the 24 steps), once plain and once with the kernel from the same
-    carried-across init; step 1 losses must agree to rtol 1e-4, every
-    step to rtol 1e-3, the last loss must be below the first, and the
-    kernel must launch once per step; a shorter kernel run under
+    the 24 steps), plain and with the kernel in turns (plain, kernel,
+    kernel, plain) from the same carried-across init; each kernel run's
+    step 1 losses must agree with plain's to rtol 1e-4, every step to
+    rtol 1e-3, the last loss must be below the first, and the kernel
+    must launch once per step; a shorter kernel run under
     torch.profiler gives the device's busy share;
 11. serve PPN-pruned (configs/tspn_config.yaml with PRUNE_AT_INFERENCE):
     the segments of phases 5 and 6 through a model with the PPN head
@@ -105,12 +106,38 @@ Phases, in order; any failure raises and the exit code is nonzero:
     tspn_tpu_torch.tools.bench_rel_{steps,pipeline,probe,int4}, at their
     defaults as one main-path group: every leg is checked against its
     plain version once and timed, so each kernel leg launches once for its
-    check and once per timed call, and Kr, Kn and Ks4 each launch.
+    check and once per timed call, and Kr, Kn and Ks4 each launch;
+22. report the build of K3's bf16 half (csrc/fused_classify_bf16.cu) and
+    hold it against its plain version at phase 8's three geometries, the
+    rows rounded to bf16: |kernel - plain| <= 1e-5 * T + 2**-8 * M per
+    element (T the summed |terms| plus |b|, M the largest |term|), with
+    at most 0.1% of the outputs needing the second term (the count is
+    printed); time both;
+23. the bf16 relation model (MODEL.DTYPE bfloat16) as one main-path group:
+    fused serve of phase 9's 48 segments (bf16 rows from the loader, one
+    fused_classify_bf16 launch per batch, top-k equal to plain apart from
+    near-ties of 1e-5), unfused serve of the same 48 segments in the
+    storage layout (bf16 Linear, no kernel of the port), and 24 fused
+    bf16 training steps kernel against plain in turns (step 1 within
+    rtol 1e-3, every step 1e-2, the loss falls), each with rates, a
+    profiled pass and its host-to-device copy time;
+24. report the build of csrc/roi_probes.cu (T-roi 1-3) and hold
+    roi_sep_fused, roi_selector and roi_constg against their plain
+    versions at the RoIAlign tools' defaults (4 x 256 RoIs, 40 x 40 x
+    1024) in f32 and bf16 within 1e-5 * T + 1e-6 (plus one bf16 ulp for a
+    bf16 output); time kernel, plain and, for constg, torch.matmul with
+    the constant G materialized (a yardstick the port never calls);
+25. run the two ported RoIAlign tools, python -m
+    tspn_tpu_torch.tools.bench_roialign_{fused,variants}, at their
+    defaults in f32 and bf16 as one main-path group: each holds its
+    kernel legs to their plain versions and every leg to roi_align_plain,
+    then times it (K7 runs the variants tool's f32 grid leg; its bf16 leg
+    is null).
 
 Convolutions and matrix products run in full f32 (TF32 off throughout).
 The kernel launches of the main path are counted from zero before each
 main-path phase group and read right after it: phases 5-6, 9-10, 11-12,
-15, 18 and 21. K4 and K5 run on no main path (the JAX package has no caller
+15, 18, 21, 23 and 25. K4 and K5 run on no main path (the JAX package has no caller
 for them either); their check launches stand in their entries. It prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero
 before printing any result.
@@ -149,6 +176,10 @@ SOLVER = NS(
                  WARMUP_FACTOR=1.0 / 3, WARMUP_ITERS=4, WARMUP_METHOD="linear"),
 )
 TIE_TOL = 1e-6
+# bf16 fused serve: kernel and plain round a normalized value near a bf16
+# midpoint one ulp apart now and then (2**-8 of one term of a logit)
+TIE_TOL_BF16 = 1e-5
+COPY = "Memcpy HtoD"  # the profiler's name for host-to-device copies
 # fused_classify checks: (name, rows, zero padding rows); the training
 # geometry is 8 segments x 992 pairs, the serve geometry 16 x 992
 FUSED_CASES = (("train", 7936, 0), ("train_ragged", 7936 - 13, 40),
@@ -182,6 +213,8 @@ VARIANT_CHUNK = 8192  # rows per plain call: a float64 copy of 95k x 11264 is 8.
 # tools/bench_rel_*.py probes, D 3072 (rel_geom) and R 132
 REL_CASES = (("tool", NUM_SEGMENTS * 992), ("ragged", NUM_SEGMENTS * 992 - 77), ("vidor", 333))
 # Kr side schedules: (name, stages, schedule, ks, sidecar width)
+# the RoIAlign probe tools' default geometry: 4 images of 40 x 40 x 1024, 256 RoIs each
+ROI_TOOL = NS(batch=4, rois=256, hw=40, channels=1024)
 REL_SCHEDULES = (("grid2", 2, "grid", 1, 16), ("grid3", 3, "grid", 1, 16),
                  ("grid4", 4, "grid", 1, 16), ("persistent2", 2, "persistent", 1, 16),
                  ("persistent4", 4, "persistent", 1, 16), ("ksplit2", 2, "grid", 2, 16),
@@ -305,10 +338,10 @@ def ppn_params(rng) -> dict:
             for k, shape in ((1, (c, PPN_HIDDEN)), (2, (PPN_HIDDEN, PPN_OUT)))}
 
 
-def seeded_model(dev, ppn: bool = False):
+def seeded_model(dev, ppn: bool = False, dtype=torch.float32):
     """normal(0.01) classifier init from a numpy seed (and the PPN head's,
     with ``ppn``), carried across from the JAX param-tree layout as a JAX
-    checkpoint would be."""
+    checkpoint would be; ``dtype`` is the compute dtype."""
     import numpy as np
 
     from tspn_tpu_torch.models.tspn import build_model
@@ -322,12 +355,12 @@ def seeded_model(dev, ppn: bool = False):
     if ppn:
         params["ppn_head"] = ppn_params(rng)
     model = build_model(NUM_PREDICATES, FEATURE_DIM, use_ppn=ppn,
-                        ppn_hidden=PPN_HIDDEN, ppn_out=PPN_OUT)
+                        ppn_hidden=PPN_HIDDEN, ppn_out=PPN_OUT, dtype=dtype)
     model.load_state_dict(state_dict_from_jax(params))
     return model.to(dev).eval()
 
 
-def seeded_fused_model(dev, inference: bool, ppn: bool = False):
+def seeded_fused_model(dev, inference: bool, ppn: bool = False, dtype=torch.float32):
     """The fused classifier's normal(0.01) init (device-layout kernel,
     zero bias), and the PPN head's with ``ppn``, from a numpy seed,
     carried across from the JAX param-tree layout."""
@@ -347,7 +380,7 @@ def seeded_fused_model(dev, inference: bool, ppn: bool = False):
         params["ppn_head"] = ppn_params(rng)
     model = build_model(NUM_PREDICATES, fused_classifier=True, inference=inference,
                         use_ppn=ppn, num_objects=SERVE["num_objects"],
-                        ppn_hidden=PPN_HIDDEN, ppn_out=PPN_OUT)
+                        ppn_hidden=PPN_HIDDEN, ppn_out=PPN_OUT, dtype=dtype)
     model.load_state_dict(state_dict_from_jax(params))
     return model.to(dev)
 
@@ -371,10 +404,10 @@ def same_selection(kernel: dict, plain: dict) -> int:
     return 0
 
 
-def same_selection_but_ties(kernel: dict, plain: dict) -> int:
+def same_selection_but_ties(kernel: dict, plain: dict, tie_tol: float = TIE_TOL) -> int:
     """Selections equal apart from near-ties at the cut: sorted scores
-    agree within TIE_TOL, and an entry that only one run selected must
-    score within TIE_TOL of the other run's last selected entry (it lost
+    agree within ``tie_tol``, and an entry that only one run selected must
+    score within ``tie_tol`` of the other run's last selected entry (it lost
     a tie there). -> the number of such entries."""
     if set(kernel) != set(plain):
         raise AssertionError("kernel and plain served different segments")
@@ -384,7 +417,7 @@ def same_selection_but_ties(kernel: dict, plain: dict) -> int:
         if len(a) != len(b):
             raise AssertionError(f"{key}: {len(a)} vs {len(b)} selections")
         gap = max((abs(x[0] - y[0]) for x, y in zip(a, b)), default=0.0)
-        if gap > TIE_TOL:
+        if gap > tie_tol:
             raise AssertionError(f"{key}: sorted scores differ by {gap}")
         sa = {e[1:]: -e[0] for e in a}
         sb = {e[1:]: -e[0] for e in b}
@@ -392,10 +425,10 @@ def same_selection_but_ties(kernel: dict, plain: dict) -> int:
                                   (sb.keys() - sa.keys(), sb, sa)):
             cut = min(other.values())
             for e in only:
-                if mine[e] - cut > TIE_TOL:
+                if mine[e] - cut > tie_tol:
                     raise AssertionError(
                         f"{key}: {e} scores {mine[e]}, above the other run's "
-                        f"cut {cut} by more than {TIE_TOL}"
+                        f"cut {cut} by more than {tie_tol}"
                     )
         swapped += len(sa.keys() ^ sb.keys())
     return swapped
@@ -456,23 +489,26 @@ def profile_run(fn, watch: tuple = ()) -> dict:
 def phase_serve(label: str, dataset, model, dev, launches_per_batch: dict,
                 compare=same_selection, **extra) -> dict:
     """predict_segments with the kernels and with the plain versions, in
-    turns, after one untimed run of each; then one profiled kernel run.
-    ``launches_per_batch`` maps each kernel to its launches per batch;
-    ``extra`` goes to predict_segments (PPN pruning)."""
+    turns, after one untimed run of each; then one profiled kernel run
+    (its host-to-device copies summed apart). ``launches_per_batch`` maps
+    each kernel to its launches per batch; ``extra`` goes to
+    predict_segments (PPN pruning)."""
     from tspn_tpu_torch.data.loader import BucketedLoader
     from tspn_tpu_torch.ops import pairwise as pw
     from tspn_tpu_torch.runtime.predict import predict_segments
 
     serve = dict(SERVE, **extra)
     loader = BucketedLoader(dataset, SERVE["buckets"], SERVE["batch_size"],
-                            dataset.feature_width(), SERVE["num_objects"])
+                            dataset.feature_width(), SERVE["num_objects"],
+                            feats_dtype=model.compute_dtype)
     t0 = time.perf_counter()
     padded = sum(batch["feats"].shape[0] * batch["feats"].shape[1]
                  for _b, batch, _i, _r in loader)
     loader_s = time.perf_counter() - t0
     n_batches = len(loader)
     rows = sum(r.feats.shape[0] for r in dataset.records)
-    feat_bytes = sum(r.feats.nbytes for r in dataset.records)
+    feat_bytes = sum(r.feats.size for r in dataset.records) * (
+        2 if model.compute_dtype == torch.bfloat16 else dataset.records[0].feats.itemsize)
     log(f"serve {label}: {len(dataset)} segments, {rows} pairs "
         f"({padded} rows with padding), {feat_bytes / 1e9:.3f} GB of "
         f"pair rows, {n_batches} batches; batch assembly alone {loader_s:.3f} s")
@@ -507,7 +543,7 @@ def phase_serve(label: str, dataset, model, dev, launches_per_batch: dict,
     except AssertionError as exc:
         raise AssertionError(f"serve {label}: {exc}") from None
     prof = profile_run(
-        lambda: predict_segments(model, dataset, device=dev, **serve)
+        lambda: predict_segments(model, dataset, device=dev, **serve), watch=(COPY,)
     )
     result = {"batches": n_batches, "pairs": rows, "rows_with_padding": padded,
               "feature_bytes": feat_bytes, "loader_s": loader_s,
@@ -587,20 +623,26 @@ def phase_fused_check(dev) -> dict:
     return report
 
 
-def phase_train(label: str, dataset, dev, ppn: bool = False) -> dict:
-    """Fused training (with the PPN head and its loss under ``ppn``),
-    plain then kernel from the same init; then a shorter profiled kernel
-    run. Step-1 losses agree to rtol 1e-4, every step to 1e-3, for the
-    total and for each loss term; the last total loss is below the first."""
+def phase_train(label: str, dataset, dev, ppn: bool = False,
+                dtype=torch.float32, rtol=(1e-4, 1e-3)) -> dict:
+    """Fused training (with the PPN head and its loss under ``ppn``; in
+    ``dtype``) from the same init in turns, plain, kernel, kernel, plain,
+    so neither side always runs first on a shared host; then a shorter
+    profiled kernel run. Each kernel run's step-1 losses agree with the
+    first plain run's to rtol ``rtol[0]``, every step to ``rtol[1]``, for
+    the total and for each loss term; the last total loss is below the
+    first. The rates are the mean of each side's two runs."""
     from tspn_tpu_torch.ops import pairwise as pw
     from tspn_tpu_torch.runtime.train import train_segments
 
+    kernel = "fused_classify_bf16" if dtype == torch.bfloat16 else "fused_classify"
+
     def run(plain: bool, steps: int):
-        model = seeded_fused_model(dev, inference=False, ppn=ppn)
-        before = pw.LAUNCHES["fused_classify"]
+        model = seeded_fused_model(dev, inference=False, ppn=ppn, dtype=dtype)
+        before = pw.LAUNCHES[kernel]
         result = train_segments(model, dataset, solver=SOLVER, max_iter=steps,
                                 device=dev, plain=plain, **TRAIN)
-        launched = pw.LAUNCHES["fused_classify"] - before
+        launched = pw.LAUNCHES[kernel] - before
         want = 0 if plain else steps
         if launched != want or result.step != steps:
             raise AssertionError(
@@ -609,35 +651,42 @@ def phase_train(label: str, dataset, dev, ppn: bool = False) -> dict:
             )
         return result
 
-    results = {"plain": run(True, TRAIN_STEPS), "kernel": run(False, TRAIN_STEPS)}
-    series = {"loss": (results["kernel"].losses, results["plain"].losses)}
-    for term in results["kernel"].loss_terms:
-        series[term] = (results["kernel"].loss_terms[term],
-                        results["plain"].loss_terms[term])
-    if ppn and set(series) != {"loss", "loss_rel", "loss_pair"}:
-        raise AssertionError(f"train {label}: loss terms {sorted(series)}")
+    runs = {"plain": [], "kernel": []}
+    for plain in (True, False, False, True):
+        runs["plain" if plain else "kernel"].append(run(plain, TRAIN_STEPS))
+    plain_run = runs["plain"][0]
     max_rel = {}
-    for name, (lk, lp) in series.items():
-        rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
-        if len(rel) != TRAIN_STEPS or rel[0] > 1e-4 or max(rel) > 1e-3:
-            raise AssertionError(f"train {label}: kernel {name} {lk} vs plain {lp}")
-        max_rel[name] = max(rel)
+    for kernel_run in runs["kernel"]:
+        series = {"loss": (kernel_run.losses, plain_run.losses)}
+        for term in kernel_run.loss_terms:
+            series[term] = (kernel_run.loss_terms[term], plain_run.loss_terms[term])
+        if ppn and set(series) != {"loss", "loss_rel", "loss_pair"}:
+            raise AssertionError(f"train {label}: loss terms {sorted(series)}")
+        for name, (lk, lp) in series.items():
+            rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
+            if len(rel) != TRAIN_STEPS or rel[0] > rtol[0] or max(rel) > rtol[1]:
+                raise AssertionError(f"train {label}: kernel {name} {lk} vs plain {lp}")
+            max_rel[name] = max(max_rel.get(name, 0.0), max(rel))
     lk, lp = series["loss"]
     if not (lk[-1] < lk[0] and lp[-1] < lp[0]):
         raise AssertionError(f"train {label}: the loss did not fall: {lk}")
-    prof = profile_run(lambda: run(False, PROFILED_STEPS))
+    prof = profile_run(lambda: run(False, PROFILED_STEPS), watch=(COPY,))
     report = {"steps": TRAIN_STEPS, "batch": TRAIN["batch_size"],
               "losses_kernel": {k: v[0] for k, v in series.items()},
               "losses_plain": {k: v[1] for k, v in series.items()},
               "max_rel_loss_diff": max_rel, "profile_steps": PROFILED_STEPS,
               "profile": prof}
-    for name, r in results.items():
-        report[f"{name}_steps_per_s"] = r.step / r.seconds
-        report[f"{name}_segments_per_s"] = r.step * TRAIN["batch_size"] / r.seconds
+    for name, rs in runs.items():
+        rates = [r.step / r.seconds for r in rs]
+        report[f"{name}_steps_per_s_runs"] = rates
+        report[f"{name}_steps_per_s"] = sum(rates) / len(rates)
+        report[f"{name}_segments_per_s"] = report[f"{name}_steps_per_s"] * TRAIN["batch_size"]
     terms = ", ".join(f"{k} {v[0][0]:.5f} -> {v[0][-1]:.5f}" for k, v in series.items())
     log(f"train {label}: {TRAIN_STEPS} steps, {terms} (max rel diff to plain "
         f"{json.dumps(max_rel)}); steps/s kernel {report['kernel_steps_per_s']:.3f} "
-        f"plain {report['plain_steps_per_s']:.3f}")
+        f"{[round(x, 3) for x in report['kernel_steps_per_s_runs']]} plain "
+        f"{report['plain_steps_per_s']:.3f} "
+        f"{[round(x, 3) for x in report['plain_steps_per_s_runs']]}")
     log(f"train {label} profile ({PROFILED_STEPS} steps): {json.dumps(prof)}")
     return report
 
@@ -1259,14 +1308,146 @@ def rel_tool_launches(results: dict) -> dict:
     return want
 
 
+def bf16_terms(x, w_t, b, lo):
+    """(T, M) in float64 for K3 bf16's bound: the summed |terms| of each
+    output plus |b|, and its largest |term|."""
+    p = x.shape[0]
+    hp, nb, blk = lo.dev_head_pad, lo.num_bow_blocks, lo.dev_block
+    bow = x[:, hp:].float().reshape(p, nb, blk)
+    s = bow.abs().sum(-1, keepdim=True)
+    bow_n = (bow / torch.where(s > 0, s, torch.ones_like(s))).to(torch.bfloat16)
+    xn = torch.cat([x[:, :hp], bow_n.reshape(p, -1)], 1).double().abs()
+    del bow
+    wa = w_t.double().abs().T
+    m = torch.stack([(xn * wa[:, j]).amax(1) for j in range(wa.shape[1])], 1)
+    return xn @ wa + b.double().abs(), m
+
+
+def phase_k3_bf16_check(dev) -> dict:
+    """K3's bf16 half against its plain version at K3's three geometries
+    (the f32 phase's rows rounded to bf16): |kernel - plain| <= 1e-5 * T +
+    2**-8 * M per element, at most 0.1% of the outputs needing the second
+    term; kernel and plain timed."""
+    from tspn_tpu_torch.data.layout import DEFAULT_LAYOUT as lo
+    from tspn_tpu_torch.ops import pairwise as pw
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    w_t = pw.weights_bf16_t(
+        torch.randn((lo.device_dim, NUM_PREDICATES), generator=gen, device=dev) * 0.01)
+    b = torch.randn((NUM_PREDICATES,), generator=gen, device=dev)
+    report = {}
+    for name, p, zero_rows in FUSED_CASES:
+        x = raw_device_rows(p, zero_rows, gen, dev).to(torch.bfloat16)
+        out = pw.normalize_classify_fused_bf16(x, w_t, b, lo)
+        ref = pw.normalize_classify_fused_bf16_plain(x, w_t, b, lo)
+        torch.cuda.synchronize()
+        if out.shape != (p, NUM_PREDICATES) or not torch.isfinite(out).all():
+            raise AssertionError(f"fused_classify_bf16 {name}: bad output {tuple(out.shape)}")
+        t, m = bf16_terms(x, w_t, b, lo)
+        err = (out.double() - ref.double()).abs()
+        worst = float((err / (1e-5 * t + 2.0 ** -8 * m)).max())
+        second = int((err > 1e-5 * t).sum())
+        max_err = float(err.max())
+        del t, m, err
+        if worst > 1.0 or second > 1e-3 * out.numel():
+            raise AssertionError(
+                f"fused_classify_bf16 {name}: worst err/bound {worst}, {second} of "
+                f"{out.numel()} outputs need the 2**-8 M term (max err {max_err})")
+        ms = cuda_median_ms(lambda: pw.normalize_classify_fused_bf16(x, w_t, b, lo))
+        plain_ms = cuda_median_ms(lambda: pw.normalize_classify_fused_bf16_plain(x, w_t, b, lo))
+        flop = 2.0 * p * lo.device_dim * NUM_PREDICATES
+        report[name] = {"rows": p, "width": lo.device_dim, "cols": NUM_PREDICATES,
+                        "max_abs_err": max_err, "worst_err_over_bound": worst,
+                        "outputs_needing_second_term": second, "outputs": out.numel(),
+                        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                        **bound((x, w_t, b), out, flop, "bf16")}
+        log(f"fused_classify_bf16 {name}: P={p} D={lo.device_dim} R={NUM_PREDICATES} "
+            f"max|err| {max_err:.3e} (worst err/bound {worst:.3f}; {second} of "
+            f"{out.numel()} outputs need the 2**-8 M term) kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms bound {report[name]['bound_ms']:.4f} ms "
+            f"({report[name]['bound_by']})")
+        del x, out, ref
+    return report
+
+
+def phase_roi_check(dev) -> dict:
+    """T-roi 1-3 against their plain versions at the tools' default
+    geometry in f32 and bf16, within 1e-5 * T + 1e-6 (plus one bf16 ulp
+    for a bf16 output); kernel, plain and, for constg, torch.matmul with
+    the constant G materialized, timed."""
+    from tspn_tpu_torch.ops import roi_probes as rp
+    from tspn_tpu_torch.tools import roi_common as rc
+
+    a = ROI_TOOL
+    feats32, boxes = rc.inputs(a, dev)
+    terms = rc.sum_terms(feats32, boxes)
+    const_terms = rp.roi_constg_plain(feats32.abs(), boxes).abs()
+    s1, s2 = rc.sep_ops(a.batch, a.rois, a.hw, a.hw, a.channels)
+    g_ops = rc.gemm_ops(a.batch, a.rois, a.hw, a.hw, a.channels)
+    report = {"roi_sep_fused": {}, "roi_selector": {}, "roi_constg": {}}
+    for dtype in ("f32", "bf16"):
+        feats = feats32.to(rc.DTYPES[dtype])
+        kd = rc.kind(feats.dtype)
+        cases = (("roi_sep_fused", rp.roi_sep_fused, rp.roi_sep_fused_plain, terms,
+                  rc.ops_by_kind((kd, s1), ("f32", s2))),
+                 ("roi_selector", rp.roi_selector, rp.roi_selector_plain, terms, {kd: g_ops}),
+                 ("roi_constg", rp.roi_constg, rp.roi_constg_plain, const_terms, {kd: g_ops}))
+        for name, kernel, plain, t, ops in cases:
+            out = kernel(feats, boxes)
+            ref = plain(feats, boxes)
+            torch.cuda.synchronize()
+            worst = rc.over_bound(out, ref, t, 1e-5, ulp=out.dtype == torch.bfloat16)
+            max_err = float((out.double() - ref.double()).abs().max())
+            if not worst <= 1.0 or not torch.isfinite(out).all():
+                raise AssertionError(f"{name} {dtype}: worst err/bound {worst}, max err {max_err}")
+            entry = {"shape": list(out.shape), "max_abs_err": max_err,
+                     "worst_err_over_bound": worst,
+                     "ms": cuda_median_ms(lambda: kernel(feats, boxes)),
+                     "plain_ms": cuda_median_ms(lambda: plain(feats, boxes), iters=3),
+                     "library_ms": None, **bound((feats, boxes), out, ops)}
+            if name == "roi_constg":
+                g = rp.constg_value(boxes, feats.dtype)[:, :, None, None].expand(
+                    a.batch, a.rois, 14 * 14, a.hw * a.hw)
+                g = g.reshape(a.batch, a.rois * 14 * 14, a.hw * a.hw).contiguous()
+                f2 = feats.reshape(a.batch, a.hw * a.hw, a.channels)
+                entry["library_ms"] = cuda_median_ms(lambda: torch.matmul(g, f2))
+                del g
+            report[name][dtype] = entry
+            log(f"{name} {dtype}: {tuple(out.shape)} max|err| {max_err:.3e} (worst err/bound "
+                f"{worst:.3f}) kernel {entry['ms']:.4f} ms plain {entry['plain_ms']:.4f} ms "
+                f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}) library "
+                f"{entry['library_ms']}")
+            del out, ref
+        del feats
+        torch.cuda.empty_cache()
+    return report
+
+
+def phase_roi_tools(dev) -> dict:
+    """The two ported RoIAlign probe tools at their defaults, in f32 and
+    bf16; each holds its kernel legs to their plain versions and every leg
+    to roi_align_plain before timing it."""
+    from tspn_tpu_torch.tools import bench_roialign_fused, bench_roialign_variants
+
+    results = {}
+    for tool, mod in (("fused", bench_roialign_fused), ("variants", bench_roialign_variants)):
+        for dtype in ("f32", "bf16"):
+            results[f"{tool}_{dtype}"] = mod.main(["--dtype", dtype, "--device", str(dev)])
+    if results["variants_bf16"]["grid_ms"] is not None or results["variants_f32"]["grid_ms"] is None:
+        raise AssertionError("bench_roialign_variants: the grid leg runs in f32 only")
+    return results
+
+
 def build_kernels() -> None:
-    """The six sources' nvcc builds (K1, K4, K6 and the probe share
-    q8s.cu; Kr, Kn and Ks4 rel.cu), one per source, started together."""
+    """The eight sources' nvcc builds (K1, K4, K6 and the probe share
+    q8s.cu; Kr, Kn and Ks4 rel.cu; T-roi 1-3 roi_probes.cu), one per
+    source, started together."""
     from tspn_tpu_torch.ops import _cuda
 
     libraries = (_cuda.q8s_library, _cuda.q8f_fused_library,
                  _cuda.fused_classify_library, _cuda.roi_align_library,
-                 _cuda.q8_bf16_library, _cuda.rel_library)
+                 _cuda.q8_bf16_library, _cuda.rel_library,
+                 _cuda.fused_classify_bf16_library, _cuda.roi_sep_fused_library)
     with ThreadPoolExecutor(len(libraries)) as pool:
         for f in [pool.submit(lib) for lib in libraries]:
             f.result()
@@ -1288,12 +1469,12 @@ def main_path(name: str, fn):
     from tspn_tpu_torch.ops import pairwise as pw
     from tspn_tpu_torch.ops import rel
     from tspn_tpu_torch.ops import roi_align as ra
+    from tspn_tpu_torch.ops import roi_probes as rp
 
-    pw.reset_launches()
-    ra.reset_launches()
-    rel.reset_launches()
+    for module in (pw, ra, rel, rp):
+        module.reset_launches()
     result = fn()
-    counts = {**pw.LAUNCHES, **ra.LAUNCHES, **rel.LAUNCHES}
+    counts = {**pw.LAUNCHES, **ra.LAUNCHES, **rel.LAUNCHES, **rp.LAUNCHES}
     log(f"main path {name}: launches {counts}")
     return result, counts
 
@@ -1303,7 +1484,8 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
     """One entry of the kernels line: the largest error over the checked
     geometries, and the times and bound at the geometry ``timed``. Only
     the probe and Kr (int32) have a library time (``torch._int_mm``, where
-    it accepts the shapes): PyTorch has no int4 product for Kn and Ks4,
+    it accepts the shapes), and constg (``torch.matmul`` with its constant
+    G materialized): PyTorch has no int4 product for Kn and Ks4,
     and no single PyTorch call computes the other kernels' functions
     (they scale segments of an int32 or bf16 product by per-row scales;
     for RoIAlign, ``F.grid_sample``'s zero padding splits the weight at the
@@ -1378,12 +1560,12 @@ def main() -> int:
         return served, phase_train("fused", fused_data, dev)
 
     (serve["fused_f32"], train), counts_fused = main_path("fused serve + train", fused)
-    want = serve["fused_f32"]["batches"] * 4 + TRAIN_STEPS + PROFILED_STEPS
+    want = serve["fused_f32"]["batches"] * 4 + 2 * TRAIN_STEPS + PROFILED_STEPS
     if counts_fused["fused_classify"] != want:
         raise AssertionError(
             f"fused_classify launches {counts_fused['fused_classify']}, want {want}: "
             f"{serve['fused_f32']['batches']} batches x 4 kernel serve runs "
-            f"(warm-up, two timed, profiled) + {TRAIN_STEPS} + {PROFILED_STEPS} "
+            f"(warm-up, two timed, profiled) + 2 x {TRAIN_STEPS} + {PROFILED_STEPS} "
             f"kernel training steps"
         )
 
@@ -1416,16 +1598,60 @@ def main() -> int:
     want_rel = rel_tool_launches(rel_tools)
     if {k: v for k, v in counts_rel.items() if v} != want_rel:
         raise AssertionError(f"bench_rel tools launches {counts_rel}, want {want_rel}")
+    torch.cuda.empty_cache()
+
+    report_build("fused_classify_bf16")
+    k3b_checks = phase_k3_bf16_check(dev)
+    t0 = time.perf_counter()
+    unfused_data = synthetic_segments(FUSED_SEGMENTS, "f32", seed=SEED,
+                                      num_objects=SERVE["num_objects"],
+                                      num_predicates=NUM_PREDICATES)
+    log(f"bf16: {FUSED_SEGMENTS} storage-layout segments generated in "
+        f"{time.perf_counter() - t0:.1f} s")
+    bf16 = torch.bfloat16
+
+    def bf16_model():
+        fused_model = seeded_fused_model(dev, inference=True, dtype=bf16).eval()
+        served = {
+            "fused_bf16": phase_serve(
+                "fused_bf16", fused_data, fused_model, dev, {"fused_classify_bf16": 1},
+                compare=lambda k, p: same_selection_but_ties(k, p, TIE_TOL_BF16)),
+            "unfused_bf16": phase_serve("unfused_bf16", unfused_data,
+                                        seeded_model(dev, dtype=bf16), dev, {}),
+        }
+        return served, phase_train("fused_bf16", fused_data, dev, dtype=bf16,
+                                   rtol=(1e-3, 1e-2))
+
+    (served_bf16, train_bf16), counts_bf16 = main_path("bf16 serve + train", bf16_model)
+    serve.update(served_bf16)
+    want = served_bf16["fused_bf16"]["batches"] * 4 + 2 * TRAIN_STEPS + PROFILED_STEPS
+    if counts_bf16["fused_classify_bf16"] != want or counts_bf16["fused_classify"]:
+        raise AssertionError(f"bf16 launches {counts_bf16}: want {want} fused_classify_bf16 "
+                             "and no f32 fused_classify")
+    del unfused_data
+    torch.cuda.empty_cache()
+
+    report_build("roi_probes")
+    roi_checks = phase_roi_check(dev)
+    roi_tools, counts_roi = main_path("RoIAlign probe tools", lambda: phase_roi_tools(dev))
+    per_call = 1 + WARMUP + ITERS * REPS  # the check call and each timed call
+    want_roi = {"roi_sep_fused": 2 * per_call, "roi_selector": 2 * per_call,
+                "roi_constg": 2 * per_call, "roi_align": per_call}
+    if {k: v for k, v in counts_roi.items() if v} != want_roi:
+        raise AssertionError(f"RoIAlign probe tools launches {counts_roi}, want {want_roi}")
     for kernel, counts in (("q8s", (counts_int8, counts_ppn, counts_tool, counts_rel)),
                            ("q8f_fused", (counts_int8, counts_ppn)),
                            ("fused_classify", (counts_fused, counts_ppn)),
                            ("roi_align", (counts_det,)),
                            ("q8t", (counts_tool,)), ("q8_probe", (counts_tool,)),
                            ("rel_s8", (counts_rel,)), ("rel_s4x8", (counts_rel,)),
-                           ("rel_s4x4", (counts_rel,))):
+                           ("rel_s4x4", (counts_rel,)), ("fused_classify_bf16", (counts_bf16,)),
+                           ("roi_sep_fused", (counts_roi,)), ("roi_selector", (counts_roi,)),
+                           ("roi_constg", (counts_roi,))):
         if any(c[kernel] == 0 for c in counts):
             raise AssertionError(f"a main-path phase launched no {kernel} kernel")
-    all_counts = (counts_int8, counts_fused, counts_ppn, counts_det, counts_tool, counts_rel)
+    all_counts = (counts_int8, counts_fused, counts_ppn, counts_det, counts_tool, counts_rel,
+                  counts_bf16, counts_roi)
     launches = {k: sum(c[k] for c in all_counts) for k in counts_int8}
     checked = variant_checks.pop("check_launches")
     rel_checked = rel_checks.pop("check_launches")
@@ -1438,12 +1664,16 @@ def main() -> int:
                     "variant_geometries": variant_checks, "variant_check_launches": checked,
                     "bench_pair_kernels": tool,
                     "rel_geometries": rel_checks, "rel_check_launches": rel_checked,
-                    "bench_rel_tools": rel_tools,
+                    "bench_rel_tools": rel_tools, "train_fused_bf16": train_bf16,
+                    "fused_bf16_geometries": k3b_checks, "roi_probe_geometries": roi_checks,
+                    "bench_roialign_tools": roi_tools,
                     "main_path_launches": {"int8_serve": counts_int8,
                                            "fused": counts_fused, "ppn": counts_ppn,
                                            "detector": counts_det,
                                            "bench_pair_kernels": counts_tool,
-                                           "bench_rel_tools": counts_rel}}))
+                                           "bench_rel_tools": counts_rel,
+                                           "bf16": counts_bf16,
+                                           "bench_roialign_tools": counts_roi}}))
     log(json.dumps({"kernels": [
         kernel_entry("q8s", "tspn_tpu_torch/csrc/q8s.cu",
                      "tspn_tpu/ops/pairwise.py:481", launches["q8s"], checks, "rel"),
@@ -1481,6 +1711,16 @@ def main() -> int:
         kernel_entry("rel_s4x4", "tspn_tpu_torch/csrc/rel.cu", "tools/bench_rel_int4.py:63,76",
                      launches["rel_s4x4"], rel_checks["rel_s4x4"], "tool",
                      check_launches=rel_checked["rel_s4x4"]),
+        kernel_entry("fused_classify_bf16", "tspn_tpu_torch/csrc/fused_classify_bf16.cu",
+                     "tspn_tpu/ops/pairwise.py:1288", launches["fused_classify_bf16"],
+                     k3b_checks, "train"),
+        *(kernel_entry(name, "tspn_tpu_torch/csrc/roi_probes.cu", replaces,
+                       launches[name], roi_checks[name], "f32",
+                       bf16={k: roi_checks[name]["bf16"][k] for k in
+                             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+          for name, replaces in (("roi_sep_fused", "tools/bench_roialign_fused.py:94"),
+                                 ("roi_selector", "tools/bench_roialign_variants.py:137"),
+                                 ("roi_constg", "tools/bench_roialign_variants.py:182"))),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

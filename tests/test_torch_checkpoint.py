@@ -150,23 +150,34 @@ def test_training_checkpoint_round_trip(tmp_path):
 def test_unported_parts_raise(what, jax_params, tmp_path):
     """Span mode raises: the CLI's training with RELPN.USE_DPN ("ppn": the
     PPN itself is ported, its video-level chain ranker belongs to span
-    mode) and a param tree with a span-mode subtree ("ppn_weights"); so do
-    the fused classifier in bf16 (queued) and a JAX checkpoint given to
-    --resume (its optax state is not carried across)."""
+    mode) and a param tree with a span-mode subtree ("ppn_weights"); so
+    does a JAX checkpoint given to --resume (its optax state is not
+    carried across). The fused classifier in bf16 ("fused") no longer
+    raises: its f32 parameters load from the same checkpoint and it
+    serves bf16 rows with f32 logits."""
     from types import SimpleNamespace
 
     from tspn_tpu_torch import base
     from tspn_tpu_torch.config import get_default_config
 
+    if what == "fused":
+        rng = np.random.RandomState(6)
+        params = {"classifier": {
+            "kernel": (rng.randn(11264, R) * 0.01).astype(np.float32),
+            "bias": np.zeros(R, np.float32)}}
+        model = build_model(num_predicates=R, fused_classifier=True, dtype=torch.bfloat16)
+        model.load_state_dict(tckpt.state_dict_from_jax(params))
+        out = model({"feats": torch.ones((1, 2, 11264), dtype=torch.bfloat16)})
+        assert out["rel_logits"].dtype == torch.float32
+        assert out["rel_logits"].shape == (1, 2, R)
+        assert bool(torch.isfinite(out["rel_logits"]).all())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "ppn":
             cfg = get_default_config()
             assert cfg.RELPN.USE_PPN and cfg.RELPN.USE_DPN
             base.training(cfg, SimpleNamespace(dataset="vidvrd", device="cpu",
                                                resume=False), str(tmp_path))
-        elif what == "fused":
-            model = build_model(num_predicates=R, fused_classifier=True)
-            model({"feats": torch.zeros((1, 2, 11264), dtype=torch.bfloat16)})
         elif what == "ppn_weights":
             tckpt.state_dict_from_jax({"classifier": {}, "ppn_head": {},
                                        "span_head": {}})

@@ -11,13 +11,15 @@
   prediction JSON, and ``--train --resume`` continues at the
   checkpoint's step. With a config like configs/tspn_config.yaml (the
   PPN on, span mode off) plus PRUNE_AT_INFERENCE, ``--train`` trains the
-  PPN head too and ``--detect`` serves the q8f store PPN-pruned.
+  PPN head too and ``--detect`` serves the q8f store PPN-pruned. With
+  ``MODEL.DTYPE: bfloat16`` (unfused and fused) ``--train --detect`` runs
+  and the checkpoint keeps f32 parameters.
 * ``--train`` and ``--detect`` run on ``cuda`` unless ``--device`` names
   another device; without a card that default stops with a hint.
 * No file of the port, and not chip_smoke.py, imports ``tspn_tpu``: a
   static walk of every import statement (and ``import_module`` call) at
-  any depth. Besides, the device path imports none of jax, flax, h5py,
-  yaml, msgpack or tspn_tpu: a subprocess whose import system refuses
+  any depth. Besides, the device path imports none of jax, flax,
+  ml_dtypes, h5py, yaml, msgpack or tspn_tpu: a subprocess whose import system refuses
   them imports every module of tspn_tpu_torch and chip_smoke.
 * chip_smoke.py exits nonzero and prints no result without a CUDA
   device, and in a directory without the package.
@@ -278,6 +280,39 @@ def test_port_train_detect_tspn_config(served_workdir):
             assert 0.0 <= e["score"] <= 1.0 and len(e["triplet"]) == 3
 
 
+@pytest.mark.parametrize("fused", [False, True])
+def test_port_train_detect_bf16(fused, served_workdir):
+    """--train then --detect with MODEL.DTYPE bfloat16 on the CPU: the
+    checkpoint's parameters stay f32, and the prediction JSON is valid
+    (the fused classifier serves through K3's bf16 plain version)."""
+    from tspn_tpu.data.annotations import VidVRD
+    from tspn_tpu_torch.runtime.checkpoint import load_checkpoint
+
+    work = served_workdir
+    data = work / "data" / "vidvrd"
+    num_predicates = VidVRD(str(data), str(data / "videos"),
+                            ["train", "test"]).get_predicate_num()
+    name = f"portbf16{int(fused)}"
+    overrides = _train_overrides(name, 4)
+    overrides["MODEL"].update({"FUSED_CLASSIFIER": fused, "DTYPE": "bfloat16"})
+    _write_config(work / f"{name}.yaml", "", num_predicates,
+                  dump=f"{name}_weights_iter_4.pt", **overrides)
+    _run_port_base(work, ["--config", f"{name}.yaml", "--data_dir", "data",
+                          "--dataset", "vidvrd", "--train", "--detect"])
+    ckpt = load_checkpoint(str(work / "vidvrd-baseline-output" / "models"
+                               / f"{name}_weights_iter_4.pt"))
+    assert ckpt["step"] == 4
+    assert all(str(v.dtype) == "torch.float32" for v in ckpt["state_dict"].values())
+    out = _prediction_path(work)
+    with open(out) as f:
+        got = json.load(f)
+    os.remove(out)
+    assert got["version"] == "VERSION 1.0" and got["results"]
+    for entries in got["results"].values():
+        for e in entries:
+            assert 0.0 <= e["score"] <= 1.0 and len(e["triplet"]) == 3
+
+
 def test_cli_refuses_unported_stages(capsys):
     import torch
 
@@ -344,7 +379,7 @@ def test_port_imports_nothing_of_tspn_tpu():
 
 REFUSE = """
 import importlib, importlib.abc, pkgutil, sys
-BLOCKED = {"jax", "flax", "h5py", "yaml", "msgpack", "tspn_tpu"}
+BLOCKED = {"jax", "flax", "ml_dtypes", "h5py", "yaml", "msgpack", "tspn_tpu"}
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:

@@ -87,12 +87,21 @@ def test_fused_plain_matches_pallas_and_device(c):
 
 
 def test_fused_forward_refuses_bf16():
+    """bf16 rows are no longer refused: they take K3's bf16 half (its plain
+    version on a CPU tensor), with W rounded to bf16 as the TPU kernel
+    casts it to the rows' dtype, and f32 logits (tests/test_torch_bf16.py
+    holds that half against the JAX kernel)."""
     _jl, tl, x, w, b = _inputs(35)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpw.normalize_classify_fused_forward(
-            torch.from_numpy(x).bfloat16(), torch.from_numpy(w),
-            torch.from_numpy(b), tl,
-        )
+    xb = torch.from_numpy(x).bfloat16()
+    out = tpw.normalize_classify_fused_forward(xb, torch.from_numpy(w),
+                                               torch.from_numpy(b), tl)
+    assert out.dtype == torch.float32 and out.shape == (P, R)
+    ref = tpw.normalize_classify_fused_bf16_plain(xb, tpw.weights_bf16_t(w),
+                                                  torch.from_numpy(b), tl)
+    assert torch.equal(out, ref)
+    with pytest.raises(TypeError):
+        tpw.normalize_classify_fused_forward(xb.half(), torch.from_numpy(w),
+                                             torch.from_numpy(b), tl)
 
 
 def _jax_grads(fn, x, w, b, g, jl):

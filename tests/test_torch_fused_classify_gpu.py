@@ -11,8 +11,10 @@ flax are absent: ``python -m pytest tests/test_torch_fused_classify_gpu.py -q``.
   (the kernel in one f32 FMA chain per output, the plain version through
   the cuBLAS f32 GEMM with TF32 off), so the bound is relative to the
   magnitude of the summed terms.
-* The wrapper raises on bf16 and non-contiguous inputs and on a width
-  that does not fit the layout.
+* The wrapper sends bf16 rows to K3's bf16 half (one launch of
+  ``fused_classify_bf16``; tests/test_torch_bf16_gpu.py holds it), and
+  raises on bf16 weights under f32 rows, on non-contiguous inputs and on a
+  width that does not fit the layout.
 * The training op's dW and db agree whether its forward is the kernel or
   the plain version, and the kernel launches once per forward.
 """
@@ -80,8 +82,11 @@ def test_fused_kernel_within_bound(cuda_device, c, r, p):
 def test_fused_kernel_rejects_bad_operands(cuda_device):
     layout = FeatureLayout()
     x, w, b = _inputs(layout, 64, 8, cuda_device)
-    with pytest.raises(NotImplementedError):
-        tpw.normalize_classify_fused_forward(x.bfloat16(), w, b, layout)
+    # bf16 rows are no longer refused: they launch K3's bf16 half
+    before = tpw.LAUNCHES["fused_classify_bf16"]
+    out = tpw.normalize_classify_fused_forward(x.bfloat16(), w, b, layout)
+    assert out.dtype == torch.float32 and out.shape == (64, w.shape[1])
+    assert tpw.LAUNCHES["fused_classify_bf16"] == before + 1
     with pytest.raises(TypeError):
         tpw.normalize_classify_fused_forward(x, w.bfloat16(), b, layout)
     wide = torch.zeros((64, 2 * layout.device_dim), device=cuda_device)

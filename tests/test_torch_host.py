@@ -24,6 +24,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from tspn_tpu import association as jassoc
 from tspn_tpu import data as jdata
@@ -208,7 +209,13 @@ def test_segment_dataset_records_equal(phase, fused, cfg, synthetic_dataset, out
     tds = tvr.SegmentDataset(tcfg, port_annotations, phase=phase)
     assert tds.index == jds.index and len(tds) > 0
     assert tvr.effective_feature_dim(tcfg) == jvr.effective_feature_dim(cfg)
-    assert tvr.effective_feats_dtype(tcfg) == jvr.effective_feats_dtype(cfg)
+    # the leaf dtype of each MODEL.DTYPE: torch's for the JAX package's
+    # numpy / ml_dtypes one
+    for dtype, want in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        jcfg, pcfg = cfg.clone(), tcfg.clone()
+        jcfg.MODEL.DTYPE = pcfg.MODEL.DTYPE = dtype
+        assert np.dtype(jvr.effective_feats_dtype(jcfg)).name == dtype
+        assert tvr.effective_feats_dtype(pcfg) == want
     for i in range(len(jds)):
         assert tds.num_proposals_of(i) == jds.num_proposals_of(i)
         for with_labels in (True, False):

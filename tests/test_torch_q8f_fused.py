@@ -108,7 +108,8 @@ def test_k2_plain_matches_pallas(p):
     tpw.reset_launches()
     out = _port((trk_q, trk_s, rel_q, rel_s, pairs), twq, b)
     assert tpw.LAUNCHES == {"q8s": 0, "fused_classify": 0, "q8f_fused": 0,
-                            "q8i8": 0, "q8bf": 0, "q8t": 0, "q8_probe": 0}
+                            "q8i8": 0, "q8bf": 0, "q8t": 0, "q8_probe": 0,
+                            "fused_classify_bf16": 0}
     assert out.dtype == torch.float32 and out.shape == ref.shape == (2, p, R)
     _assert_close_to_terms(out.numpy(), ref,
                            _terms(trk_q, trk_s, rel_q, rel_s, pairs, wq, b))

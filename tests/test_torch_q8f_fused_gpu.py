@@ -100,7 +100,8 @@ def test_pruned_serve_kernel_matches_plain(cuda_device):
     out = predict_segments(model, dataset, device=cuda_device, **kw)
     ref = predict_segments(model, dataset, device=cuda_device, plain=True, **kw)
     assert tpw.LAUNCHES == {"q8s": batches, "fused_classify": 0, "q8f_fused": batches,
-                            "q8i8": 0, "q8bf": 0, "q8t": 0, "q8_probe": 0}
+                            "q8i8": 0, "q8bf": 0, "q8t": 0, "q8_probe": 0,
+                            "fused_classify_bf16": 0}
 
     def selection(res):
         return {k: sorted((-float(s), tuple(i.tolist()), int(t[1]))

@@ -1,1 +1,1 @@
-from tspn_tpu_torch.config.config import Config, get_default_config  # noqa: F401
+from tspn_tpu_torch.config.config import Config, compute_dtype, get_default_config  # noqa: F401

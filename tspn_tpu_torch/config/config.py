@@ -6,7 +6,8 @@ every ``configs/*.yaml`` merges unchanged. A small attribute dict with
 yacs-style ``merge_from_file`` / ``merge_from_list`` / ``dump``. PyYAML
 is imported only inside the functions that parse or write YAML.
 ``tests/test_torch_host.py`` holds the defaults and the merge of every
-``configs/*.yaml`` equal to the original's.
+``configs/*.yaml`` equal to the original's. ``compute_dtype`` reads
+MODEL.DTYPE as a torch dtype.
 """
 
 from __future__ import annotations
@@ -221,3 +222,14 @@ def get_default_config() -> Config:
             },
         }
     )
+
+
+def compute_dtype(cfg):
+    """MODEL.DTYPE as a torch dtype: torch.bfloat16 for "bfloat16", else
+    torch.float32. It is the model's compute dtype and the dtype of the
+    float feature leaves; parameters stay f32."""
+    import torch
+
+    if cfg.MODEL.get("DTYPE", "float32") == "bfloat16":
+        return torch.bfloat16
+    return torch.float32

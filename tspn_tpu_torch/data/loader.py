@@ -11,6 +11,14 @@ their top. ``tests/test_torch_predict.py`` and
 ``tests/test_torch_train.py`` hold this loader's batches equal, key by
 key, to the JAX BucketedLoader's. There is no prefetch thread: batches
 are assembled when the consumer asks for them.
+
+Float feature leaves are f32 numpy arrays, or, for a model that computes
+in bf16 (``feats_dtype=torch.bfloat16``, the JAX loader's
+``ml_dtypes.bfloat16`` leaves), a bf16 CPU tensor: each record's f32 rows
+are cast into it by round-to-nearest-even as they are copied, which is
+what writing f32 rows into an ``ml_dtypes.bfloat16`` buffer does, bit for
+bit. So half the bytes cross to the card. ``leaf_to_device`` moves
+either kind.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 SegmentIndex = Tuple[str, int, int]
 
@@ -56,18 +65,26 @@ def pick_bucket(num_tracklets: int, buckets: Sequence[int]) -> int:
 
 def batch_buffers(
     template, batch_size: int, n_bucket: int, num_objects: int, feature_dim: int,
+    feats_dtype=torch.float32,
 ) -> Dict[str, np.ndarray]:
     """Zeroed batch leaves (P_max = n_bucket * (n_bucket - 1)):
-    feats (B, P_max, D), int8 for q8 and q8f records, else f32;
+    feats (B, P_max, D), int8 for q8 and q8f records, else f32 (or, with
+    ``feats_dtype`` bf16, a bf16 tensor);
     pairs (B, P_max, 2) int32, padding points at tracklet 0;
     labels (B, P_max, R) f32 when the template carries labels;
     pair_mask (B, P_max); cls_logits (B, n_bucket, C); track_mask
     (B, n_bucket); feat_scale (B, P_max, 16) for q8 and q8f records;
     trk_feats / trk_scales for q8f records."""
     p_max = n_bucket * (n_bucket - 1)
-    feats_dtype = np.float32 if template.q8_scales is None else np.int8
+    shape = (batch_size, p_max, feature_dim)
+    if template.q8_scales is not None:
+        feats = np.zeros(shape, np.int8)
+    elif feats_dtype == torch.bfloat16:  # numpy's zeroed pages seen as bf16
+        feats = torch.from_numpy(np.zeros(shape, np.int16)).view(torch.bfloat16)
+    else:
+        feats = np.zeros(shape, np.float32)
     bufs = {
-        "feats": np.zeros((batch_size, p_max, feature_dim), feats_dtype),
+        "feats": feats,
         "pairs": np.zeros((batch_size, p_max, 2), np.int32),
         "pair_mask": np.zeros((batch_size, p_max), np.float32),
         "cls_logits": np.zeros((batch_size, n_bucket, num_objects), np.float32),
@@ -87,6 +104,11 @@ def batch_buffers(
     return bufs
 
 
+def leaf_to_device(leaf, device) -> torch.Tensor:
+    """A batch leaf (numpy array or CPU tensor) as a tensor on ``device``."""
+    return torch.as_tensor(leaf).to(device)
+
+
 def fill_padded(bufs: Dict[str, np.ndarray], b: int, record, n_bucket: int) -> None:
     """Write one record into batch slot ``b``; pairs that reach past the
     bucket's capacity are dropped."""
@@ -102,7 +124,10 @@ def fill_padded(bufs: Dict[str, np.ndarray], b: int, record, n_bucket: int) -> N
         labels_src = None if record.labels is None else record.labels[keep]
         scales_src = None if record.q8_scales is None else record.q8_scales[keep]
     p = min(feats_src.shape[0], p_max)
-    bufs["feats"][b, :p] = feats_src[:p]
+    if isinstance(bufs["feats"], torch.Tensor):  # cast by RNE as it copies
+        bufs["feats"][b, :p].copy_(torch.from_numpy(np.ascontiguousarray(feats_src[:p])))
+    else:
+        bufs["feats"][b, :p] = feats_src[:p]
     bufs["pairs"][b, :p] = pairs_src[:p]
     bufs["pair_mask"][b, :p] = 1.0
     if "labels" in bufs:
@@ -132,15 +157,19 @@ class BucketedLoader:
     multi-hot labels into a ``labels`` leaf.
 
     ``dataset`` needs ``__len__``, ``num_proposals_of(i)`` and
-    ``load_segment(i, with_labels)``.
+    ``load_segment(i, with_labels)``. ``feats_dtype`` torch.bfloat16 turns
+    a float ``feats`` leaf into bf16 (int8 leaves stay int8).
     """
 
     def __init__(
         self, dataset, buckets: Sequence[int], batch_size: int,
         feature_dim: int, num_objects: int, *, max_iter: Optional[int] = None,
         shuffle: bool = False, seed: int = 0, skip_batches: int = 0,
-        include_labels: bool = False,
+        include_labels: bool = False, feats_dtype=torch.float32,
     ):
+        if feats_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"feature leaves in {feats_dtype}: float32 or bfloat16")
+        self.feats_dtype = feats_dtype
         self.dataset = dataset
         self.buckets = sorted(buckets)
         self.batch_size = batch_size
@@ -201,6 +230,7 @@ class BucketedLoader:
             ]
             bufs = batch_buffers(
                 records[0], len(records), bucket, self.num_objects, self.feature_dim,
+                self.feats_dtype,
             )
             for b, r in enumerate(records):
                 fill_padded(bufs, b, r, bucket)

@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from tspn_tpu_torch.config import compute_dtype
 from tspn_tpu_torch.data.layout import FeatureLayout
 from tspn_tpu_torch.data.loader import SegmentRecord
 from tspn_tpu_torch.data.segments import get_relation_feature_file, segment_video
@@ -203,13 +204,10 @@ class SegmentDataset:
 
 
 def effective_feats_dtype(cfg):
-    """Host-side feature dtype of the batch leaves: bfloat16 when the
-    model computes in bf16, float32 otherwise."""
-    if cfg.MODEL.get("DTYPE", "float32") == "bfloat16":
-        import ml_dtypes
-
-        return ml_dtypes.bfloat16
-    return np.float32
+    """Dtype of the float feature leaves (``BucketedLoader(feats_dtype=)``):
+    the model's compute dtype, ``config.compute_dtype`` (the JAX package's
+    ``ml_dtypes.bfloat16`` / ``np.float32``)."""
+    return compute_dtype(cfg)
 
 
 def effective_feature_dim(cfg) -> int:

@@ -31,16 +31,29 @@ def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = N
                                      generator=generator)
 
 
+def dense(linear: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)`` over f32 parameters: in float32 the
+    Linear itself; otherwise input, kernel and bias cast to ``dtype``, and
+    the product and the bias add in ``dtype``."""
+    if dtype == torch.float32:
+        return linear(x)
+    return x.to(dtype) @ linear.weight.to(dtype).T + linear.bias.to(dtype)
+
+
 class PPNHead(nn.Module):
     """Subject / object classeme embedders and the bilinear pair scorer:
     per role Linear(C -> hidden), ReLU, Linear(hidden -> out); returns
     LOGITS (..., N, N). Parameters ``sub_fc1``, ``sub_fc2``, ``obj_fc1``
-    and ``obj_fc2`` are the flax module's Dense layers of the same names."""
+    and ``obj_fc2`` are the flax module's Dense layers of the same names.
+    With ``dtype`` bf16 the Dense layers compute in bf16 (f32 parameters
+    cast, as ``nn.Dense(dtype=bf16)``) and the pair product takes bf16
+    operands with an f32 result (``preferred_element_type=f32``)."""
 
     def __init__(self, in_channels: int = 35, hidden_channels: int = 64,
                  out_channels: int = 35, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         for role in ("sub", "obj"):
             fc1 = nn.Linear(in_channels, hidden_channels, device=device)
             fc2 = nn.Linear(hidden_channels, out_channels, device=device)
@@ -52,9 +65,12 @@ class PPNHead(nn.Module):
             setattr(self, f"{role}_fc2", fc2)
 
     def forward(self, cls_logits: torch.Tensor) -> torch.Tensor:
-        sub = self.sub_fc2(F.relu(self.sub_fc1(cls_logits)))
-        obj = self.obj_fc2(F.relu(self.obj_fc1(cls_logits)))
-        return sub @ obj.transpose(-1, -2)
+        def role(fc1, fc2):
+            return dense(fc2, F.relu(dense(fc1, cls_logits, self.dtype)), self.dtype)
+
+        sub = role(self.sub_fc1, self.sub_fc2)
+        obj = role(self.obj_fc1, self.obj_fc2)
+        return sub.float() @ obj.float().transpose(-1, -2)
 
 
 def gt_pair_matrix(pairs: torch.Tensor, labels: torch.Tensor,

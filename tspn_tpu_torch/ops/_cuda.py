@@ -103,12 +103,24 @@ def fused_classify_library() -> ctypes.CDLL:
     return _bound("fused_classify", "tspn_fused_classify_launch", 4, 5)
 
 
+def fused_classify_bf16_library() -> ctypes.CDLL:
+    return _bound("fused_classify_bf16", "tspn_fused_classify_bf16_launch", 4, 5)
+
+
 def q8f_fused_library() -> ctypes.CDLL:
     return _bound("q8f_fused", "tspn_q8f_fused_launch", 8, 5)
 
 
 def roi_align_library() -> ctypes.CDLL:
     return _bound("roi_align", "tspn_roi_align_launch", 4, 8)
+
+
+def roi_sep_fused_library() -> ctypes.CDLL:
+    return _bound("roi_probes", "tspn_roi_sep_fused_launch", 3, 8)
+
+
+def roi_gemm_library() -> ctypes.CDLL:
+    return _bound("roi_probes", "tspn_roi_gemm_launch", 3, 9)
 
 
 def rel_library() -> ctypes.CDLL:

@@ -15,6 +15,8 @@ Counterpart of ``tspn_tpu/ops/pairwise.py``. Two halves:
   fused L1 normalization + classifier over device-layout rows
   (``csrc/fused_classify.cu``), and ``normalize_classify_fused`` /
   ``normalize_classify_fused_nofeatgrad`` wrap it in autograd;
+  on bf16 rows the same two ops run K3's bf16 half
+  (``csrc/fused_classify_bf16.cu``, ``normalize_classify_fused_bf16``);
   ``q8f_fused`` is the factored rel pass with the per-tracklet A-table
   add in its epilogue (``csrc/q8f_fused.cu``), which
   ``factored_classify_q8_fused`` runs after a q8s tracklet pass.
@@ -38,7 +40,7 @@ from tspn_tpu_torch.data.layout import DEFAULT_LAYOUT, FeatureLayout, round_up
 
 # kernel launches made by the dispatchers on CUDA tensors
 LAUNCHES = {"q8s": 0, "fused_classify": 0, "q8f_fused": 0,
-            "q8i8": 0, "q8bf": 0, "q8t": 0, "q8_probe": 0}
+            "q8i8": 0, "q8bf": 0, "q8t": 0, "q8_probe": 0, "fused_classify_bf16": 0}
 
 
 def reset_launches() -> None:
@@ -429,18 +431,77 @@ def _fused_classify_cuda(x, w_dev, b, layout) -> torch.Tensor:
     return out
 
 
+def normalize_classify_fused_bf16_plain(
+    x: torch.Tensor, w_bf16_t: torch.Tensor, b: torch.Tensor,
+    layout: FeatureLayout = DEFAULT_LAYOUT,
+) -> torch.Tensor:
+    """Plain version of K3's bf16 half, (P, D) bf16 rows, (R, D) bf16
+    K-major weights (``weights_bf16_t``), (R,) f32 b -> (P, R) f32.
+
+    As the TPU kernel (``_kernel`` on bf16 rows) does: each BoW block's L1
+    sum s is taken in f32, ``scale = s > 0 ? 1/s : 1`` is an IEEE divide,
+    the block times scale is rounded to bf16 (nearest even), the head
+    passes through, then bf16 x bf16 with f32 accumulation (each product
+    is exact in f32) plus b in f32. The kernel sums |x| in another order,
+    so a normalized value near a bf16 rounding midpoint can round one ulp
+    apart: it agrees with this within ``1e-5 * T + 2**-8 * M`` (T the
+    summed |terms|, M the largest |term|), not bit for bit. On a card, run
+    it with ``torch.backends.cuda.matmul.allow_tf32 = False``."""
+    p = x.shape[0]
+    hp, nb, blk = layout.dev_head_pad, layout.num_bow_blocks, layout.dev_block
+    bow = x[:, hp:].float().reshape(p, nb, blk)
+    s = bow.abs().sum(dim=-1, keepdim=True)
+    one = torch.ones_like(s)
+    scale = torch.where(s > 0, one / torch.where(s > 0, s, one), one)
+    bow_n = (bow * scale).to(torch.bfloat16).reshape(p, nb * blk)
+    xn = torch.cat([x[:, :hp], bow_n], dim=1)
+    return xn.float() @ w_bf16_t.float().T + b
+
+
+def _fused_classify_bf16_cuda(x, w_bf16_t, b, layout) -> torch.Tensor:
+    p, d = x.shape
+    r = w_bf16_t.shape[0]
+    bf16, f32 = torch.bfloat16, torch.float32
+    _require("fused_classify_bf16", (x, w_bf16_t, b), (bf16, bf16, f32),
+             ((p, d), (r, d), (r,)), aligned=(x, w_bf16_t))
+    _require_geom("fused_classify_bf16", layout, d)
+    if layout.dev_block % 256:
+        raise ValueError(f"fused_classify_bf16: BoW slots of {layout.dev_block} are not a "
+                         "multiple of 256 (the kernel's L1 pass reduces 256 at a time)")
+    out = torch.empty((p, r), dtype=f32, device=x.device)
+    if p and r:
+        _launch("fused_classify_bf16", "fused_classify_bf16_library",
+                "tspn_fused_classify_bf16_launch", x.device,
+                (x.data_ptr(), w_bf16_t.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 p, r, d, layout.dev_head_pad, layout.dev_block))
+    return out
+
+
+def normalize_classify_fused_bf16(
+    x: torch.Tensor, w_bf16_t: torch.Tensor, b: torch.Tensor,
+    layout: FeatureLayout = DEFAULT_LAYOUT, plain: bool = False,
+) -> torch.Tensor:
+    """K3's bf16 half, (P, D) bf16 rows -> (P, R) f32, with the weights
+    already prepared by ``weights_bf16_t``: the kernel on a CUDA tensor,
+    the plain version on a CPU tensor (or with ``plain=True``)."""
+    if plain:
+        return normalize_classify_fused_bf16_plain(x, w_bf16_t, b, layout)
+    return _dispatch("fused_classify_bf16", x, _fused_classify_bf16_cuda,
+                     normalize_classify_fused_bf16_plain, x, w_bf16_t, b, layout)
+
+
 def normalize_classify_fused_forward(
     x: torch.Tensor, w_dev: torch.Tensor, b: torch.Tensor,
     layout: FeatureLayout = DEFAULT_LAYOUT, plain: bool = False,
 ) -> torch.Tensor:
-    """Fused normalize + classify, (P, device_dim) f32 -> (P, R) f32: the
-    kernel on a CUDA tensor, the plain version on a CPU tensor (or with
-    ``plain=True``, on any device)."""
+    """Fused normalize + classify, (P, device_dim) f32 or bf16 -> (P, R)
+    f32: the kernel on a CUDA tensor, the plain version on a CPU tensor
+    (or with ``plain=True``, on any device). On bf16 rows W is cast to
+    bf16 (nearest even) as the TPU kernel casts it to the rows' dtype."""
+    if x.dtype == torch.bfloat16:
+        return normalize_classify_fused_bf16(x, weights_bf16_t(w_dev), b, layout, plain)
     if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"fused classifier in {x.dtype}: only float32 is ported (bf16 "
-            "training is queued, ROADMAP queue 1)"
-        )
+        raise TypeError(f"fused classifier in {x.dtype}: float32 or bfloat16 rows only")
     if plain or x.device.type == "cpu":
         return normalize_classify_fused_plain(x, w_dev, b, layout)
     if x.device.type == "cuda":
@@ -453,11 +514,14 @@ class _FusedClassify(torch.autograd.Function):
     ``tspn_tpu/ops/pairwise.py::_fused_for_layout`` (plain PyTorch, as the
     JAX package's VJP is XLA). For a block x_b with s = sum|x_b| > 0 and
     u = g @ W^T: d x_b = u/s - sign(x_b) <u, x_b> / s^2; the head passes
-    u through."""
+    u through. The backward normalizes in f32 whatever the rows' dtype and
+    returns dx, dW and db in the dtypes of x, W and b (bf16 rows and W
+    give a bf16 dW, as the JAX VJP does)."""
 
     @staticmethod
     def forward(ctx, x, w_dev, b, layout, plain):
         ctx.layout = layout
+        ctx.b_dtype = b.dtype
         ctx.save_for_backward(x, w_dev)
         return normalize_classify_fused_forward(x, w_dev, b, layout, plain)
 
@@ -479,7 +543,7 @@ class _FusedClassify(torch.autograd.Function):
         inner = (ub * xb).sum(dim=-1, keepdim=True)
         dxb = torch.where(safe, ub / s1 - torch.sign(xb) * inner / (s1 * s1), ub)
         dx = torch.cat([u[:, :hp], dxb.reshape(p, nb * blk)], dim=1).to(x.dtype)
-        return dx, dw.to(w.dtype), db, None, None
+        return dx, dw.to(w.dtype), db.to(ctx.b_dtype), None, None
 
 
 class _FusedClassifyNoFeatGrad(torch.autograd.Function):
@@ -492,7 +556,7 @@ class _FusedClassifyNoFeatGrad(torch.autograd.Function):
     def forward(ctx, x, w_dev, b, layout, plain):
         ctx.layout = layout
         ctx.save_for_backward(x)
-        ctx.w_dtype = w_dev.dtype
+        ctx.w_dtype, ctx.b_dtype = w_dev.dtype, b.dtype
         return normalize_classify_fused_forward(x, w_dev, b, layout, plain)
 
     @staticmethod
@@ -502,7 +566,7 @@ class _FusedClassifyNoFeatGrad(torch.autograd.Function):
         dw = _normalize_device_layout(x.float(), ctx.layout).T @ g
         db = g.sum(dim=0)
         dx = torch.zeros_like(x) if ctx.needs_input_grad[0] else None
-        return dx, dw.to(ctx.w_dtype), db, None, None
+        return dx, dw.to(ctx.w_dtype), db.to(ctx.b_dtype), None, None
 
 
 def normalize_classify_fused(
@@ -612,9 +676,10 @@ def normalize_classify_q8i8_plain(
 
 
 def weights_bf16_t(w_dev) -> torch.Tensor:
-    """K5's weight prep: device-layout weights (D, R) f32 -> (R, D) bf16,
-    K-major, rounded to nearest even as JAX's ``astype(jnp.bfloat16)``."""
-    w = torch.as_tensor(w_dev, dtype=torch.float32)
+    """K5's and K3 bf16's weight prep: device-layout weights (D, R) f32 or
+    bf16 -> (R, D) bf16, K-major, rounded to nearest even as JAX's
+    ``astype(jnp.bfloat16)``."""
+    w = torch.as_tensor(w_dev).detach().to(torch.float32)
     return w.to(torch.bfloat16).T.contiguous()
 
 

@@ -12,7 +12,11 @@ triplets on the host. Three scorers, picked by the dataset:
 * q8 (expanded int8 rows): one q8s kernel launch per batch;
 * f32 (per-file or f32 store): the model itself, its nn.Linear or, for
   a fused-classifier model built with ``inference=True``, one launch of
-  the fused_classify kernel per batch over raw device-layout rows.
+  the fused_classify kernel per batch over raw device-layout rows. A
+  model that computes in bf16 (MODEL.DTYPE) gets bf16 rows from the
+  loader: its Linear runs in bf16, and the fused classifier launches K3's
+  bf16 half (fused_classify_bf16) instead. The PPN head computes in the
+  model's dtype with every scorer.
 
 PPN pruning (``num_pair_proposals`` > 0, a model with the PPN head; the
 config's RELPN.USE_PPN and PPN.PRUNE_AT_INFERENCE): the head scores every
@@ -40,7 +44,7 @@ import numpy as np
 import torch
 
 from tspn_tpu_torch.data.layout import FeatureLayout
-from tspn_tpu_torch.data.loader import BucketedLoader
+from tspn_tpu_torch.data.loader import BucketedLoader, leaf_to_device
 from tspn_tpu_torch.ops import pairwise as pw
 
 def select_topk(
@@ -51,7 +55,8 @@ def select_topk(
 ):
     """Batched two-stage top-k -> (scores, pair_idx, pred_idx, valid),
     each (B, K). Masked pairs score -inf, so ``valid`` marks the finite
-    selections and invalid scores read 0."""
+    selections and invalid scores read 0. Scores come back in f32 (a bf16
+    model's bf16 probabilities widened exactly)."""
     bsz, p, r = rel_prob.shape
     k1 = min(topk_per_pair, r)
     per_pair_scores, per_pair_preds = torch.topk(rel_prob, k1, dim=-1)
@@ -65,7 +70,7 @@ def select_topk(
     pred_idx = torch.gather(per_pair_preds.reshape(bsz, -1), 1, flat_idx)
     valid = torch.isfinite(flat_scores)
     return (
-        torch.where(valid, flat_scores, torch.zeros_like(flat_scores)),
+        torch.where(valid, flat_scores, torch.zeros_like(flat_scores)).float(),
         pair_idx.to(torch.int32),
         pred_idx.to(torch.int32),
         valid,
@@ -238,7 +243,7 @@ def build_infer(model, mode: str, layout: FeatureLayout, topk_per_pair: int,
 
     @torch.no_grad()
     def infer(batch):
-        dev = {k: torch.from_numpy(batch[k]).to(device) for k in keys}
+        dev = {k: leaf_to_device(batch[k], device) for k in keys}
         if num_pair_proposals <= 0:
             rel_prob = torch.sigmoid(score(dev))
             out = select_topk(rel_prob, dev["pair_mask"], topk_per_pair, topk_per_seg)
@@ -284,6 +289,7 @@ def predict_segments(
     loader = BucketedLoader(
         dataset, buckets=buckets, batch_size=batch_size,
         feature_dim=feature_dim, num_objects=num_objects,
+        feats_dtype=getattr(model, "compute_dtype", torch.float32),
     )
     infer = build_infer(model, mode, layout, topk_per_pair, topk_per_seg,
                         device, plain=plain, num_pair_proposals=num_pair_proposals,
@@ -358,8 +364,6 @@ def predict(cfg, basedata, device, logger=None):
     else:
         from tspn_tpu_torch.data.vrdataset import SegmentDataset
 
-        if cfg.MODEL.get("DTYPE", "float32") != "float32":
-            raise NotImplementedError("the f32 scorer runs in float32 only")
         dataset = SegmentDataset(cfg, basedata, phase=phase)
     if len(dataset) == 0:
         raise ValueError("no test segments with cached features found")

@@ -18,13 +18,13 @@ PEAK = {"bytes": 3.35e12, "int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 WARMUP, ITERS, REPS = 3, 20, 5
 
 
-def cuda_median_ms(fn, warmup: int = WARMUP, iters: int = ITERS, reps: int = REPS) -> float:
-    """Device time of one ``fn()``: the median over ``reps`` runs of
-    ``iters`` back-to-back calls, each run timed with CUDA events and
-    divided by ``iters``. A device-side sleep ahead of each run lets the
-    host queue all its launches first, so host launch latency (tens of
-    microseconds through the Python wrappers) is not timed. ``fn`` is
-    called ``warmup + iters * reps`` times."""
+def cuda_times_ms(fn, warmup: int = WARMUP, iters: int = ITERS, reps: int = REPS) -> list:
+    """Device time of one ``fn()`` in each of ``reps`` runs of ``iters``
+    back-to-back calls, each run timed with CUDA events and divided by
+    ``iters``. A device-side sleep ahead of each run lets the host queue
+    all its launches first, so host launch latency (tens of microseconds
+    through the Python wrappers) is not timed. ``fn`` is called ``warmup +
+    iters * reps`` times."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -39,29 +39,43 @@ def cuda_median_ms(fn, warmup: int = WARMUP, iters: int = ITERS, reps: int = REP
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
+    return times
 
 
-def median_ms(fn, device: torch.device) -> float:
-    """``cuda_median_ms`` on a CUDA device; on the CPU the host-clock
-    median of ``REPS`` single calls after one warm-up (a CPU time, never
-    a device time)."""
+def cuda_median_ms(fn, warmup: int = WARMUP, iters: int = ITERS, reps: int = REPS) -> float:
+    """The median of ``cuda_times_ms``."""
+    return statistics.median(cuda_times_ms(fn, warmup, iters, reps))
+
+
+def times_ms(fn, device: torch.device) -> list:
+    """``cuda_times_ms`` on a CUDA device; on the CPU the host-clock times
+    of ``REPS`` single calls after one warm-up (CPU times, never device
+    times)."""
     if device.type == "cuda":
-        return cuda_median_ms(fn)
+        return cuda_times_ms(fn)
     fn()
     times = []
     for _ in range(REPS):
         t0 = time.perf_counter()
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    return times
 
 
-def bound(tensors, out, ops: float, kind: str) -> dict:
+def median_ms(fn, device: torch.device) -> float:
+    """The median of ``times_ms``."""
+    return statistics.median(times_ms(fn, device))
+
+
+def bound(tensors, out, ops, kind: str = None) -> dict:
     """Least time the card could take for a call: the larger of its bytes
     (each input read once, the output written once) over the HBM rate and
-    its operations over the peak rate of their type (a key of PEAK)."""
+    its operations over the peak rate of their type: ``ops`` of type
+    ``kind`` (a key of PEAK), or a dict {kind: ops} whose times add."""
+    parts = ops if isinstance(ops, dict) else {kind: ops}
     moved = sum(t.numel() * t.element_size() for t in tensors) + out.numel() * out.element_size()
-    bytes_ms, ops_ms = moved / PEAK["bytes"] * 1e3, ops / PEAK[kind] * 1e3
+    bytes_ms = moved / PEAK["bytes"] * 1e3
+    ops_ms = sum(n / PEAK[k] * 1e3 for k, n in parts.items())
+    ops = sum(parts.values())
     return {"bytes": moved, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}

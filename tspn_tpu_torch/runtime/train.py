@@ -5,7 +5,8 @@ labeled dataset, one ``train_step`` per batch, the plateau scheduler fed
 with each step's loss when it is selected, and periodic checkpoints
 through a callback. It reads only what the loader contract asks of the
 dataset, so it trains from in-memory segments as well as from the
-artifacts. ``train`` is the CLI entry: it reads the train split through
+artifacts. A model that computes in bf16 (``MODEL.DTYPE: bfloat16``)
+gets bf16 feature leaves. ``train`` is the CLI entry: it reads the train split through
 the port's dataset readers (data/vrdataset.py, data/preprocess.py; they
 import h5py where they read), builds the model (with the PPN head under
 ``RELPN.USE_PPN``), resumes from the port's own latest checkpoint when
@@ -75,7 +76,7 @@ def train_segments(
     loader = BucketedLoader(
         dataset, buckets, batch_size, feature_dim, num_objects,
         max_iter=max_iter, shuffle=True, seed=seed, skip_batches=start,
-        include_labels=True,
+        include_labels=True, feats_dtype=getattr(model, "compute_dtype", torch.float32),
     )
 
     losses: List[torch.Tensor] = []
@@ -138,8 +139,6 @@ def train(cfg, basedata, device, resume: bool = False, logger=None,
     )
     from tspn_tpu_torch.runtime.logging_utils import setup_logger
 
-    if cfg.MODEL.get("DTYPE", "float32") != "float32":
-        raise NotImplementedError("bf16 training is not ported yet (ROADMAP queue 1)")
     if logger is None:
         logger = setup_logger("train", save_dir="logs")
     logger.info(f"config:\n{cfg.dump()}")
