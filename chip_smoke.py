@@ -131,13 +131,40 @@ Phases, in order; any failure raises and the exit code is nonzero:
     tspn_tpu_torch.tools.bench_roialign_{fused,variants}, at their
     defaults in f32 and bf16 as one main-path group: each holds its
     kernel legs to their plain versions and every leg to roi_align_plain,
-    then times it (K7 runs the variants tool's f32 grid leg; its bf16 leg
-    is null).
+    then times it (K7 runs the variants tool's grid leg, in bf16 on its
+    bf16 half);
+26. report the build of csrc/roi_align.cu's bf16 and backward entry
+    points, and hold K7's bf16 half against roi_align_plain on the same
+    bf16 maps (widened, pooled in f32, rounded once) bit for bit at phase
+    14's four geometries; time both;
+27. hold K7's backward against the plain backward (autograd of
+    roi_align_plain in chunks of 256 RoIs, summed in f32, rounded once
+    for a bf16 map) in f32 and bf16 at the training geometry (4 images of
+    40 x 40 x 1024, 512 RoIs: GT-like boxes inside the map and proposals,
+    some partly off it), a ragged 475 RoIs and the border boxes at (7, 2)
+    and (4, 1), within |kernel - plain| <= 1e-5 * T + 1e-6 per element (T
+    the plain backward of |dOut|; plus one bf16 ulp of the plain value in
+    bf16); time both at the training geometry;
+28. train the detector at full width through detection.train.train_detector:
+    R101-C4, 35 classes, DetectorTrainConfig's defaults (4 images a batch,
+    640 letterbox, RPN 256, RoI 128, NMS 2000/512), 16 seeded in-memory
+    480 x 640 records with 1-8 flat boxes of random classes on noise,
+    5 steps a run (DET_TRAIN_STEPS) from the seeded init, with K7 (forward and
+    backward) and with the plain RoIAlign in turns (plain, kernel,
+    kernel, plain), in f32 and then in bf16 (--bf16): step-1 losses
+    kernel against plain within rtol 1e-4 (bf16: 1e-2), every loss
+    finite; steps/s the median of each side's runs (a run's rate over its
+    steps after the first); one profiled step for the busy share and K7's
+    forward and backward shares; peak memory; the checkpoint of the first
+    kernel run reloads into a detector that detects;
+29. serve the bf16 detector: phase 15 with the model in bf16 (K7's bf16
+    half against the plain bf16 RoIAlign in turns, frames/s, the same
+    detections apart from near-ties, TTA, classeme, a profiled pass).
 
 Convolutions and matrix products run in full f32 (TF32 off throughout).
 The kernel launches of the main path are counted from zero before each
 main-path phase group and read right after it: phases 5-6, 9-10, 11-12,
-15, 18, 21, 23 and 25. K4 and K5 run on no main path (the JAX package has no caller
+15, 18, 21, 23, 25 and 28-29. K4 and K5 run on no main path (the JAX package has no caller
 for them either); their check launches stand in their entries. It prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero
 before printing any result.
@@ -146,6 +173,8 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -199,6 +228,15 @@ BORDER_BOXES = ((2.0, 3.0, 10.0, 12.0), (-3.0, -2.0, 5.0, 6.0), (18.0, 14.0, 30.
                 (0.0, 0.0, 24.0, 20.0), (5.0, 5.0, 5.0, 5.0), (-4.0, -3.0, 5.0, 6.0),
                 (18.0, 14.0, 28.0, 24.0), (-1.5, -1.0, 0.5, 21.0))
 PLAIN_CHUNK = 256  # RoIs per roi_align_plain call: its (R, 28, W, C) gather
+# K7 backward checks: the training geometry (4 images, 128 RoIs each), a
+# ragged count and the borders; "train" boxes are half GT-like, half
+# proposals drawn over the map (some hanging off it)
+K7_BACKWARD_CASES = (("train", 4, 40, 40, 1024, 512, 14, 2, "train"),
+                     ("ragged", 4, 40, 40, 1024, 512 - 37, 14, 2, "train"),
+                     ("border_7x2", 1, 20, 24, 1024, 8, 7, 2, "border"),
+                     ("border_4x1", 1, 20, 24, 1024, 8, 4, 1, "border"))
+# detector training: seeded 480 x 640 records, the steps of each run
+DET_TRAIN_RECORDS, DET_TRAIN_STEPS, DET_TRAIN_HW = 16, 5, (480, 640)
 # the detector: 640 x 640 letterboxed frames in batches of 8
 # (tools/run_pipeline.py and detect_video_frames defaults)
 DET_FRAMES, DET_BATCH, DET_SIZE = 20, 8, 640
@@ -712,6 +750,14 @@ def k7_inputs(gen, n, h, w, c, r, kind, dev):
     feats = torch.rand((n, h, w, c), generator=gen, device=dev)
     if kind == "border":
         boxes = torch.tensor(BORDER_BOXES, device=dev)
+    elif kind == "train":  # GT-like boxes inside the map, then proposals
+        inside = r // 2
+        xy = torch.rand((inside, 2), generator=gen, device=dev) * torch.tensor(
+            [w - 4.0, h - 4.0], device=dev)
+        wh = torch.rand((inside, 2), generator=gen, device=dev) * 20.0 + 1.0
+        gt = torch.cat([xy, torch.minimum(xy + wh, torch.tensor([w, h], device=dev))], 1)
+        _, rest, _ = k7_inputs(gen, 1, h, w, 1, r - inside, "random", dev)
+        boxes = torch.cat([gt, rest])[torch.randperm(r, generator=gen, device=dev)]
     else:
         xy = torch.rand((r, 2), generator=gen, device=dev) * torch.tensor(
             [w + 8.0, h + 8.0], device=dev) - 4.0
@@ -758,14 +804,18 @@ def phase_k7_check(dev) -> dict:
     return report
 
 
-def seeded_detector(dev):
+def seeded_detector(dev, dtype=torch.float32, state_dict=None):
     """Faster R-CNN R101-C4 at DetectionConfig's defaults with the flax-like
-    seeded init; the cls_score bias of classes 0..2 is raised to 3, so
-    those classes score about 0.2 against the 0.05 threshold (a seeded
-    init alone scores every class near 1/36 and keeps nothing)."""
+    seeded init (or ``state_dict``), computing in ``dtype``; the cls_score
+    bias of classes 0..2 is raised to 3, so those classes score about 0.2
+    against the 0.05 threshold (a seeded init alone scores every class
+    near 1/36 and keeps nothing)."""
     from tspn_tpu_torch.detection.rcnn import DetectionConfig, FasterRCNN
 
-    model = FasterRCNN(DetectionConfig(), generator=torch.Generator().manual_seed(SEED))
+    model = FasterRCNN(DetectionConfig(), generator=torch.Generator().manual_seed(SEED),
+                       dtype=dtype)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
     with torch.no_grad():
         model.cls_score.bias[:DET_RAISED_CLASSES] = DET_RAISED_BIAS
     return model.to(dev).to(memory_format=torch.channels_last).eval()
@@ -869,36 +919,40 @@ def detect_stage_seconds(model, frames, dev) -> dict:
     return {"wall_s": wall, **{k: {"s": v[0], "calls": v[1]} for k, v in spent.items()}}
 
 
-def phase_detect(dev) -> dict:
+def phase_detect(dev, dtype=torch.float32) -> dict:
     """Detector inference at full width through detect_video_frames, with
     K7 and with the plain RoIAlign in turns; the K7-vs-plain detections on
-    shared features; one TTA batch, one classeme call, one profiled run."""
+    shared features; one TTA batch, one classeme call, one profiled run.
+    A bf16 model runs K7's bf16 half."""
     from tspn_tpu_torch.ops import roi_align as ra
     from tspn_tpu_torch.pipeline import detect_video_frames
 
+    label = "detect" if dtype == torch.float32 else "detect bf16"
+    key = "roi_align" if dtype == torch.float32 else "roi_align_bf16"
     t0 = time.perf_counter()
-    model = seeded_detector(dev)
+    model = seeded_detector(dev, dtype)
     frames = synthetic_frames(DET_FRAMES, SEED)
     setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
     cfg = model.cfg
     n_batches = -(-DET_FRAMES // DET_BATCH)
-    log(f"detect: R{cfg.depth}-C4, {cfg.num_classes} classes, {DET_FRAMES} frames of "
+    log(f"{label}: R{cfg.depth}-C4, {cfg.num_classes} classes, {DET_FRAMES} frames of "
         f"{DET_SIZE}x{DET_SIZE}, batch {DET_BATCH} ({n_batches} batches); model and "
         f"frames made in {setup_s:.1f} s")
 
     def run(variant: str):
         model.roi_pool = ra.roi_align if variant == "kernel" else roi_align_plain_chunked
-        before = ra.LAUNCHES["roi_align"]
+        before = ra.LAUNCHES[key]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         dets = detect_video_frames(model, frames, device=dev, batch_size=DET_BATCH)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         model.roi_pool = ra.roi_align
-        launched = ra.LAUNCHES["roi_align"] - before
+        launched = ra.LAUNCHES[key] - before
         want = n_batches if variant == "kernel" else 0
         if launched != want:
-            raise AssertionError(f"detect {variant}: {launched} roi_align launches, "
+            raise AssertionError(f"{label} {variant}: {launched} {key} launches, "
                                  f"want {want}")
         return dets, seconds
 
@@ -935,7 +989,7 @@ def phase_detect(dev) -> dict:
     k7_ms = prof["watched_device_ms"]["roi_align"]
     stages = detect_stage_seconds(model, frames, dev)
     timed_s = DET_FRAMES / statistics.median(runs["kernel"])
-    result = {"frames": DET_FRAMES, "batch": DET_BATCH, "size": DET_SIZE,
+    result = {"dtype": str(dtype), "frames": DET_FRAMES, "batch": DET_BATCH, "size": DET_SIZE,
               "batches": n_batches, "kept_detections": kept,
               "tta_kept_detections": tta_kept, "near_ties_excluded": ties,
               "frames_per_s": statistics.median(runs["kernel"]),
@@ -952,12 +1006,12 @@ def phase_detect(dev) -> dict:
               # run: one launch per batch each; the shared-features detect,
               # TTA and classeme once
               "want_launches": 5 * n_batches + 3}
-    log(f"detect: {kept} detections kept over {DET_FRAMES} frames, every frame "
+    log(f"{label}: {kept} detections kept over {DET_FRAMES} frames, every frame "
         f"keeps some; K7 and plain on shared features equal apart from {ties} "
         f"near-tie slots; TTA keeps {tta_kept}; frames/s kernel {runs['kernel']} "
         f"plain {runs['plain']}")
-    log(f"detect profile: {json.dumps(prof)}")
-    log(f"detect stages (host clock, synchronized): {json.dumps(stages)}")
+    log(f"{label} profile: {json.dumps(prof)}")
+    log(f"{label} stages (host clock, synchronized): {json.dumps(stages)}")
     return result
 
 
@@ -1433,9 +1487,231 @@ def phase_roi_tools(dev) -> dict:
     for tool, mod in (("fused", bench_roialign_fused), ("variants", bench_roialign_variants)):
         for dtype in ("f32", "bf16"):
             results[f"{tool}_{dtype}"] = mod.main(["--dtype", dtype, "--device", str(dev)])
-    if results["variants_bf16"]["grid_ms"] is not None or results["variants_f32"]["grid_ms"] is None:
-        raise AssertionError("bench_roialign_variants: the grid leg runs in f32 only")
+    if any(results[f"variants_{d}"]["grid_ms"] is None for d in ("f32", "bf16")):
+        raise AssertionError("bench_roialign_variants: the grid leg must run in f32 and bf16")
     return results
+
+
+def k7_ops(s: int, out_numel: int) -> float:
+    """K7's f32 operations (forward, or the backward's transpose): per
+    output element s*s samples of 6 mul + 3 add, s*s sums, 1 divide."""
+    return (10.0 * s * s + 1.0) * out_numel
+
+
+def phase_k7_bf16_check(dev) -> dict:
+    """K7's bf16 half vs roi_align_plain on the same bf16 maps (in chunks),
+    bit for bit, at phase 14's geometries; both timed."""
+    from tspn_tpu_torch.ops import roi_align as ra
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    report = {}
+    for name, n, h, w, c, r, out, s, kind in K7_CASES:
+        feats, boxes, idx = k7_inputs(gen, n, h, w, c, r, kind, dev)
+        feats = feats.bfloat16()
+        got = ra.roi_align(feats, boxes, idx, out, s)
+        ref = roi_align_plain_chunked(feats, boxes, idx, out, s)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16 or got.shape != (r, out, out, c):
+            raise AssertionError(f"roi_align bf16 {name}: bad output {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        max_err = float((got.float() - ref.float()).abs().max())
+        if not torch.equal(got, ref):
+            raise AssertionError(f"roi_align bf16 {name}: K7 differs from plain "
+                                 f"(max err {max_err})")
+        del ref
+        ms = cuda_median_ms(lambda: ra.roi_align(feats, boxes, idx, out, s))
+        plain_ms = cuda_median_ms(
+            lambda: roi_align_plain_chunked(feats, boxes, idx, out, s), iters=3)
+        report[name] = {"images": n, "map": [h, w, c], "rois": r, "out": out,
+                        "sampling_ratio": s, "max_abs_err": max_err, "ms": ms,
+                        "plain_ms": plain_ms,
+                        **bound((feats, boxes, idx), got, k7_ops(s, got.numel()), "f32")}
+        log(f"roi_align bf16 {name}: {n} x {h}x{w}x{c}, {r} RoIs, out {out}, s {s}: equal "
+            f"to plain; kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+            f"{report[name]['bound_ms']:.4f} ms ({report[name]['bound_by']}, "
+            f"{report[name]['bytes'] / 1e9:.3f} GB)")
+        del feats, boxes, idx, got
+    return report
+
+
+def phase_k7_backward_check(dev) -> dict:
+    """K7's backward vs the plain backward (autograd of roi_align_plain in
+    chunks) in f32 and bf16 within 1e-5 * T + 1e-6 (+ one bf16 ulp);
+    timed at the training geometry."""
+    from tspn_tpu_torch.ops import roi_align as ra
+    from tspn_tpu_torch.tools.roi_common import bf16_ulp
+
+    report = {"f32": {}, "bf16": {}}
+    for dtype_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+        for name, n, h, w, c, r, out, s, kind in K7_BACKWARD_CASES:
+            feats, boxes, idx = k7_inputs(gen, n, h, w, c, r, kind, dev)
+            shape = feats.shape
+            del feats
+            dout = (torch.rand((r, out, out, c), generator=gen, device=dev) * 2 - 1).to(dtype)
+
+            def kernel():
+                return ra.roi_align_backward(dout, boxes, idx, shape, dtype, out, s)
+
+            def plain(d=dout, out_dtype=dtype):
+                return ra.roi_align_backward_plain(d, boxes, idx, shape, out_dtype, out, s,
+                                                   chunk=PLAIN_CHUNK)
+
+            got = kernel()
+            ref = plain().double()
+            terms = plain(dout.abs(), torch.float32).double()  # T, in f32
+            torch.cuda.synchronize()
+            if got.dtype != dtype or got.shape != shape or not torch.isfinite(got).all():
+                raise AssertionError(f"roi_align backward {dtype_name} {name}: bad output")
+            tol = 1e-5 * terms + 1e-6
+            if dtype == torch.bfloat16:
+                tol = tol + bf16_ulp(ref)
+            err = (got.double() - ref).abs()
+            worst = float((err / tol).max())
+            max_err = float(err.max())
+            del err, tol, terms
+            if worst > 1.0:
+                raise AssertionError(f"roi_align backward {dtype_name} {name}: |kernel - "
+                                     f"plain| exceeds the bound (max err {max_err}, worst "
+                                     f"err/bound {worst})")
+            entry = {"images": n, "map": [h, w, c], "rois": r, "out": out,
+                     "sampling_ratio": s, "max_abs_err": max_err,
+                     "worst_err_over_bound": worst,
+                     **bound((dout, boxes, idx), got, k7_ops(s, dout.numel()), "f32")}
+            if name == "train":
+                entry["ms"] = cuda_median_ms(kernel)
+                entry["plain_ms"] = cuda_median_ms(plain, iters=3)
+            report[dtype_name][name] = entry
+            log(f"roi_align backward {dtype_name} {name}: {n} x {h}x{w}x{c}, {r} RoIs, out "
+                f"{out}, s {s}: max|err| {max_err:.3e} (worst err/bound {worst:.3f})"
+                + (f" kernel {entry['ms']:.4f} ms plain {entry['plain_ms']:.4f} ms"
+                   if "ms" in entry else "")
+                + f" bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}, "
+                f"{entry['bytes'] / 1e9:.3f} GB)")
+            del dout, boxes, idx, got, ref
+    torch.cuda.empty_cache()
+    return report
+
+
+def detector_train_records(n: int, seed: int) -> list:
+    """n records of (480, 640, 3) uint8 noise with 1-8 flat boxes of random
+    classes (of 35) drawn on it, as COCO-format dicts with in-memory
+    images (no image files, no PIL)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    h, w = DET_TRAIN_HW
+    records = []
+    for i in range(n):
+        img = (rng.rand(h, w, 3) * 64).astype(np.uint8)
+        anns = []
+        for _ in range(rng.randint(1, 9)):
+            bw, bh = rng.randint(24, w // 2), rng.randint(24, h // 2)
+            x0, y0 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+            img[y0 : y0 + bh, x0 : x0 + bw] = rng.randint(64, 256, 3)
+            anns.append({"bbox": [float(x0), float(y0), float(x0 + bw), float(y0 + bh)],
+                         "category_id": int(rng.randint(0, 35)), "bbox_mode": "XYXY_ABS"})
+        records.append({"image": img, "image_id": i, "height": h, "width": w,
+                        "annotations": anns})
+    return records
+
+
+def phase_detector_train(dev) -> dict:
+    """Detector training at full width through train_detector, K7 and the
+    plain RoIAlign in turns, in f32 and bf16; a profiled step per type;
+    the first kernel run's checkpoint reloads into a detector that
+    detects."""
+    import logging
+    import tempfile
+
+    from tspn_tpu_torch.detection import train as dt
+    from tspn_tpu_torch.detection.inputs import DetectorTrainConfig, make_batch
+    from tspn_tpu_torch.detection.rcnn import DetectionConfig
+    from tspn_tpu_torch.runtime.checkpoint import load_detector_checkpoint
+
+    t0 = time.perf_counter()
+    records = detector_train_records(DET_TRAIN_RECORDS, SEED)
+    log(f"detector train: {DET_TRAIN_RECORDS} records of {DET_TRAIN_HW} made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    quiet = logging.getLogger("chip_smoke.detector_train")
+    quiet.setLevel(logging.WARNING)
+    det_cfg = DetectionConfig()
+    workdir = tempfile.mkdtemp(prefix="detector_train_")
+    ckpt = f"{workdir}/detector.pt"
+    result = {}
+    for dtype_name, bf16, rtol in (("f32", False, 1e-4), ("bf16", True, 1e-2)):
+        cfg = DetectorTrainConfig(max_iter=DET_TRAIN_STEPS, log_every=1, mixed_precision=bf16)
+        runs = {"plain": [], "kernel": []}
+        first, peak, kept_model = {}, {}, None
+        for variant in ("plain", "kernel", "kernel", "plain"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            save = ckpt if (variant == "kernel" and not bf16 and not runs["kernel"]) else None
+            model, hist = dt.train_detector(
+                records, det_cfg, cfg, seed=SEED, logger=quiet, device=dev,
+                checkpoint_path=save,
+                roi_pool=None if variant == "kernel" else roi_align_plain_chunked)
+            torch.cuda.synchronize()
+            losses = hist["losses"]
+            if len(losses) != DET_TRAIN_STEPS or not all(
+                    math.isfinite(v) for step in losses for v in step.values()):
+                raise AssertionError(f"detector train {dtype_name} {variant}: bad losses "
+                                     f"{losses}")
+            runs[variant].append(1.0 / statistics.median(hist["step_seconds"][1:]))
+            first.setdefault(variant, losses[0])
+            peak[variant] = max(peak.get(variant, 0.0),
+                                torch.cuda.max_memory_allocated(dev) / 1e9)
+            if variant == "kernel":
+                kept_model = model
+            del model
+        diff = {k: abs(first["kernel"][k] - first["plain"][k]) / abs(first["plain"][k])
+                for k in first["plain"]}
+        if max(diff.values()) > rtol:
+            raise AssertionError(f"detector train {dtype_name}: step-1 losses kernel "
+                                 f"{first['kernel']} plain {first['plain']} beyond rtol {rtol}")
+        # one profiled step of the kernel-run model (a warm-up step first)
+        batch = dt.batch_to_device(make_batch(records[: cfg.ims_per_batch], cfg), dev)
+        optimizer, scheduler = dt.build_detector_optimizer(kept_model.parameters(), cfg)
+        dt.detector_train_step(kept_model, optimizer, scheduler, batch)
+        prof = profile_run(lambda: dt.detector_train_step(kept_model, optimizer, scheduler,
+                                                          batch),
+                           watch=("roi_align_kernel", "roi_align_backward_kernel"))
+        del kept_model, optimizer, scheduler, batch
+        fwd_ms = prof["watched_device_ms"]["roi_align_kernel"]
+        bwd_ms = prof["watched_device_ms"]["roi_align_backward_kernel"]
+        result[dtype_name] = {
+            "steps": DET_TRAIN_STEPS, "ims_per_batch": cfg.ims_per_batch,
+            "image_size": cfg.image_size, "first_losses": first,
+            "step1_rel_diff": diff, "last_losses": losses[-1],
+            "steps_per_s": statistics.median(runs["kernel"]),
+            "plain_steps_per_s": statistics.median(runs["plain"]), "runs": runs,
+            "peak_memory_gb": peak,
+            "k7_forward_device_ms": fwd_ms, "k7_backward_device_ms": bwd_ms,
+            "k7_forward_share": fwd_ms / prof["device_ms"],
+            "k7_backward_share": bwd_ms / prof["device_ms"],
+            "profile": prof}
+        log(f"detector train {dtype_name}: {DET_TRAIN_STEPS} steps a run, step-1 losses "
+            f"{first['kernel']} (max rel diff to plain {max(diff.values()):.3e}); steps/s "
+            f"kernel {runs['kernel']} plain {runs['plain']}; peak {peak} GB; K7 forward "
+            f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms of {prof['device_ms']:.1f} ms device "
+            f"time in a profiled step")
+        log(f"detector train {dtype_name} profile: {json.dumps(prof)}")
+        torch.cuda.empty_cache()
+
+    # the checkpoint reloads into a detector that detects
+    model = seeded_detector(dev, state_dict=load_detector_checkpoint(ckpt))
+    frames = synthetic_frames(DET_BATCH, SEED + 1)
+    with torch.no_grad():
+        dets = model.detect(torch.as_tensor(frames, device=dev))
+    kept = check_detections({k: v.cpu() for k, v in dets.items()}, DET_BATCH,
+                            model.cfg.num_classes)
+    result["checkpoint"] = {"path_kind": "native torch.save", "kept_detections": kept}
+    log(f"detector train: the checkpoint reloads and detects ({kept} kept over "
+        f"{DET_BATCH} frames)")
+    del model
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return result
 
 
 def build_kernels() -> None:
@@ -1636,13 +1912,41 @@ def main() -> int:
     roi_tools, counts_roi = main_path("RoIAlign probe tools", lambda: phase_roi_tools(dev))
     per_call = 1 + WARMUP + ITERS * REPS  # the check call and each timed call
     want_roi = {"roi_sep_fused": 2 * per_call, "roi_selector": 2 * per_call,
-                "roi_constg": 2 * per_call, "roi_align": per_call}
+                "roi_constg": 2 * per_call, "roi_align": per_call, "roi_align_bf16": per_call}
     if {k: v for k, v in counts_roi.items() if v} != want_roi:
         raise AssertionError(f"RoIAlign probe tools launches {counts_roi}, want {want_roi}")
+
+    report_build("roi_align")
+    from tspn_tpu_torch.ops import _cuda
+
+    _cuda.roi_align_bf16_library()
+    _cuda.roi_align_backward_library()
+    log("roi_align.cu entry points tspn_roi_align_bf16_launch and "
+        "tspn_roi_align_backward_launch bound")
+    k7b_checks = phase_k7_bf16_check(dev)
+    k7g_checks = phase_k7_backward_check(dev)
+
+    def detector_train_and_bf16_serve():
+        return phase_detector_train(dev), phase_detect(dev, torch.bfloat16)
+
+    (det_train, detect_bf16), counts_train = main_path("detector training + bf16 detect",
+                                                       detector_train_and_bf16_serve)
+    # per kernel training run: one forward and one backward a step; the
+    # profiled step and its warm-up likewise; the reloaded checkpoint's
+    # detect batch one f32 forward
+    steps = 2 * DET_TRAIN_STEPS + 2
+    want_train = {"roi_align": steps + 1,
+                  "roi_align_bf16": steps + detect_bf16["want_launches"],
+                  "roi_align_backward": 2 * steps}
+    if {k: v for k, v in counts_train.items() if v} != want_train:
+        raise AssertionError(f"detector training + bf16 detect launches {counts_train}, "
+                             f"want {want_train}")
     for kernel, counts in (("q8s", (counts_int8, counts_ppn, counts_tool, counts_rel)),
                            ("q8f_fused", (counts_int8, counts_ppn)),
                            ("fused_classify", (counts_fused, counts_ppn)),
-                           ("roi_align", (counts_det,)),
+                           ("roi_align", (counts_det, counts_train)),
+                           ("roi_align_bf16", (counts_roi, counts_train)),
+                           ("roi_align_backward", (counts_train,)),
                            ("q8t", (counts_tool,)), ("q8_probe", (counts_tool,)),
                            ("rel_s8", (counts_rel,)), ("rel_s4x8", (counts_rel,)),
                            ("rel_s4x4", (counts_rel,)), ("fused_classify_bf16", (counts_bf16,)),
@@ -1651,7 +1955,7 @@ def main() -> int:
         if any(c[kernel] == 0 for c in counts):
             raise AssertionError(f"a main-path phase launched no {kernel} kernel")
     all_counts = (counts_int8, counts_fused, counts_ppn, counts_det, counts_tool, counts_rel,
-                  counts_bf16, counts_roi)
+                  counts_bf16, counts_roi, counts_train)
     launches = {k: sum(c[k] for c in all_counts) for k in counts_int8}
     checked = variant_checks.pop("check_launches")
     rel_checked = rel_checks.pop("check_launches")
@@ -1667,13 +1971,17 @@ def main() -> int:
                     "bench_rel_tools": rel_tools, "train_fused_bf16": train_bf16,
                     "fused_bf16_geometries": k3b_checks, "roi_probe_geometries": roi_checks,
                     "bench_roialign_tools": roi_tools,
+                    "roi_align_bf16_geometries": k7b_checks,
+                    "roi_align_backward_geometries": k7g_checks,
+                    "detector_train": det_train, "detector_bf16": detect_bf16,
                     "main_path_launches": {"int8_serve": counts_int8,
                                            "fused": counts_fused, "ppn": counts_ppn,
                                            "detector": counts_det,
                                            "bench_pair_kernels": counts_tool,
                                            "bench_rel_tools": counts_rel,
                                            "bf16": counts_bf16,
-                                           "bench_roialign_tools": counts_roi}}))
+                                           "bench_roialign_tools": counts_roi,
+                                           "detector_train_bf16_detect": counts_train}}))
     log(json.dumps({"kernels": [
         kernel_entry("q8s", "tspn_tpu_torch/csrc/q8s.cu",
                      "tspn_tpu/ops/pairwise.py:481", launches["q8s"], checks, "rel"),
@@ -1686,6 +1994,16 @@ def main() -> int:
         kernel_entry("roi_align", "tspn_tpu_torch/csrc/roi_align.cu",
                      "tspn_tpu/ops/roi_align.py:171", launches["roi_align"],
                      k7_checks, "detect"),
+        kernel_entry("roi_align_bf16", "tspn_tpu_torch/csrc/roi_align.cu",
+                     "tspn_tpu/ops/roi_align.py:171", launches["roi_align_bf16"],
+                     k7b_checks, "detect"),
+        kernel_entry("roi_align_backward", "tspn_tpu_torch/csrc/roi_align.cu",
+                     "tspn_tpu/ops/roi_align.py:171", launches["roi_align_backward"],
+                     k7g_checks["f32"], "train",
+                     bf16={"max_abs_err": max(v["max_abs_err"]
+                                              for v in k7g_checks["bf16"].values()),
+                           **{k: k7g_checks["bf16"]["train"][k] for k in
+                              ("ms", "plain_ms", "bound_ms", "bound_by")}}),
         kernel_entry("q8i8", "tspn_tpu_torch/csrc/q8s.cu",
                      "tspn_tpu/ops/pairwise.py:571", launches["q8i8"],
                      variant_checks["q8i8"], "tool", check_launches=checked["q8i8"]),

@@ -330,9 +330,35 @@ def test_detect_video_frames_matches_jax(jax_model):
                                 {k: v[t] for k, v in ref.items()})
 
 
-def test_detector_refuses_bf16(port_model, image):
-    with pytest.raises(NotImplementedError):
-        port_model.detect(torch.from_numpy(image)[None].bfloat16())
+def test_detector_refuses_bf16(jax_model, image):
+    """Once a refusal, now the bf16 detector (``dtype=torch.bfloat16`` over
+    the same f32 parameters) against JAX's ``dtype=jnp.bfloat16``: the
+    same number kept, the same classes, sorted scores within two bf16
+    ulps, and every detection that scores above the lowest kept score
+    found again (same class, IoU > 0.95, score within two ulps). Those at
+    the lowest score tie in bf16 for the last slots, so either may hold
+    them."""
+    ref = _jax_apply((JaxRCNN(cfg=TINY, dtype=jnp.bfloat16), jax_model[1]),
+                     JaxRCNN.detect, image)
+    ref = {k: np.asarray(v, np.float32) if k in ("boxes", "scores") else np.asarray(v)
+           for k, v in ref.items()}
+    model = FasterRCNN(DetectionConfig(**TINY._asdict()), dtype=torch.bfloat16).eval()
+    model.load_state_dict(tckpt.detector_state_dict_from_jax(jax_model[1]))
+    out = model.detect(torch.from_numpy(image)[None])
+    assert out["scores"].dtype == torch.bfloat16 and out["boxes"].dtype == torch.float32
+    ours = {k: v[0].float().numpy() if k == "scores" else v[0].numpy() for k, v in out.items()}
+    np.testing.assert_array_equal(ours["mask"], ref["mask"])
+    kept = np.flatnonzero(ref["mask"])
+    assert len(kept) > 0
+    two_ulps = 2.0 ** -7 * float(ref["scores"].max())
+    np.testing.assert_allclose(np.sort(ours["scores"]), np.sort(ref["scores"]), atol=two_ulps)
+    np.testing.assert_array_equal(np.sort(ours["classes"][kept]), np.sort(ref["classes"][kept]))
+    iou = np.asarray(jnms.box_iou(jnp.asarray(ref["boxes"]), jnp.asarray(ours["boxes"])))
+    lowest = ref["scores"][kept].min()
+    for k in kept[ref["scores"][kept] > lowest]:
+        assert any(ours["classes"][j] == ref["classes"][k] and iou[k, j] > 0.95
+                   and abs(ours["scores"][j] - ref["scores"][k]) <= two_ulps
+                   for j in kept), f"slot {k}: no match"
 
 
 def test_seeded_init_is_flax_like():

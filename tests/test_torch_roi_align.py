@@ -91,16 +91,26 @@ def test_dispatch_on_cpu_runs_the_plain_version(feat):
     tra.reset_launches()
     f, b = torch.from_numpy(feat), torch.from_numpy(BOXES)
     out = tra.roi_align(f, b, None, 14, 2)
-    assert tra.LAUNCHES == {"roi_align": 0}
+    assert tra.LAUNCHES == {"roi_align": 0, "roi_align_bf16": 0, "roi_align_backward": 0}
     assert torch.equal(out, tra.roi_align_plain(f, b, None, 14, 2))
     assert torch.equal(out, tra.roi_align(f[None], b, torch.zeros(len(BOXES),
                                                                   dtype=torch.int32)))
 
 
 def test_dispatch_refuses_what_is_not_ported(feat):
+    """A bf16 map now runs: on the CPU the dispatch pools ``f.float()`` and
+    rounds once, and autograd carries a gradient back in bf16. Other
+    float types and a batch without an image index still raise."""
     f, b = torch.from_numpy(feat), torch.from_numpy(BOXES)
-    with pytest.raises(NotImplementedError):
-        tra.roi_align(f.bfloat16(), b)
+    fb = f.bfloat16().requires_grad_(True)
+    out = tra.roi_align(fb, b)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, tra.roi_align_plain(f.bfloat16().float(), b).bfloat16())
+    out.float().sum().backward()
+    assert fb.grad.dtype == torch.bfloat16 and fb.grad.abs().sum() > 0
+    assert tra.LAUNCHES["roi_align_bf16"] == 0
+    with pytest.raises(TypeError):
+        tra.roi_align(f.half(), b)
     with pytest.raises(ValueError):  # several images need an index per box
         tra.roi_align(torch.stack([f, f]), b)
 

@@ -8,8 +8,15 @@ Imports only torch, numpy and tspn_tpu_torch:
   element: at the boundary boxes of tests/test_roi_align.py at (7, 2),
   (4, 1) and (14, 2), with C a multiple of 4 (float4 taps) and not
   (scalar taps); and over a batch of images with a ragged RoI count.
-* An image index outside [0, N) pools zeros; the wrapper raises on
-  operands the kernel does not take.
+* K7's bf16 half equals ``roi_align_plain`` on the same bf16 map (the
+  map widened to f32, the output rounded once) bit for bit, at the same
+  boxes and over a batch.
+* K7's backward agrees with autograd of ``roi_align_plain`` within
+  1e-5 * T + 1e-6 per element, T the plain backward of |dOut| (plus one
+  bf16 ulp of the plain gradient for a bf16 map): the kernel's atomics add
+  in another order, and in no fixed one.
+* An image index outside [0, N) pools zeros and takes no gradient; the
+  wrapper raises on operands the kernel does not take.
 * A small detector on the card launches K7 once per detect batch and
   gives the detections of the plain RoIAlign on the same features.
 """
@@ -101,8 +108,8 @@ def test_kernel_rejects_bad_operands(cuda_device):
         tra._roi_align_cuda(feats, boxes.cpu(), idx, 4, 2)
     with pytest.raises(ValueError):
         tra._roi_align_cuda(feats, boxes, idx, 14, 10)
-    with pytest.raises(NotImplementedError):
-        tra.roi_align(feats.bfloat16(), boxes, idx, 4, 2)
+    with pytest.raises(TypeError):
+        tra.roi_align(feats.half(), boxes, idx, 4, 2)
 
 
 def test_small_detector_on_the_card(cuda_device):
@@ -149,3 +156,96 @@ def _assert_same_but_ties(ours, ref, tie=1e-5):
             continue
         gaps = (ref["scores"][kept] - ref["scores"][k]).abs()
         assert close and float(gaps.sort().values[1]) <= tie, f"slot {k} differs"
+
+
+def _batch_inputs(gen, dev, n=3, hw=40, c=256, r=301):
+    feats = torch.rand((n, hw, hw, c), generator=gen).to(dev)
+    xy = torch.rand((r, 2), generator=gen) * (hw + 8) - 4
+    wh = torch.rand((r, 2), generator=gen) * 30
+    boxes = torch.cat([xy, xy + wh], 1).to(dev)
+    idx = torch.randint(0, n, (r,), generator=gen, dtype=torch.int32).to(dev)
+    return feats, boxes, idx
+
+
+@pytest.mark.parametrize("c", [8, 6])
+@pytest.mark.parametrize("out_size,s", [(7, 2), (4, 1), (14, 2)])
+def test_bf16_kernel_equals_plain_at_the_borders(cuda_device, out_size, s, c):
+    gen = torch.Generator().manual_seed(c)
+    feats = torch.rand((1, 20, 24, c), generator=gen).to(cuda_device).bfloat16()
+    boxes = torch.tensor(BOXES, device=cuda_device)
+    idx = torch.zeros(len(BOXES), dtype=torch.int32, device=cuda_device)
+    before = tra.LAUNCHES["roi_align_bf16"]
+    out = tra.roi_align(feats, boxes, idx, out_size, s)
+    ref = tra.roi_align_plain(feats, boxes, idx, out_size, s)
+    torch.cuda.synchronize()
+    assert tra.LAUNCHES["roi_align_bf16"] == before + 1
+    assert out.dtype == ref.dtype == torch.bfloat16
+    assert torch.equal(out, ref)
+
+
+def test_bf16_kernel_equals_plain_over_a_batch(cuda_device):
+    feats, boxes, idx = _batch_inputs(torch.Generator().manual_seed(3), cuda_device)
+    feats = feats.bfloat16()
+    out = tra.roi_align(feats, boxes, idx, 14, 2)
+    ref = torch.cat([tra.roi_align_plain(feats, boxes[k:k + 64], idx[k:k + 64], 14, 2)
+                     for k in range(0, len(boxes), 64)])
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+def _assert_backward_agrees(feats, boxes, idx, out_size, s, gen):
+    dout = (torch.rand((len(boxes), out_size, out_size, feats.shape[-1]), generator=gen)
+            * 2 - 1).to(feats.device, feats.dtype)
+    f = feats.detach().clone().requires_grad_(True)
+    before = tra.LAUNCHES["roi_align_backward"]
+    tra.roi_align(f, boxes, idx, out_size, s).backward(dout)
+    ref = tra.roi_align_backward_plain(dout, boxes, idx, feats.shape, feats.dtype, out_size, s)
+    terms = tra.roi_align_backward_plain(dout.abs(), boxes, idx, feats.shape, torch.float32,
+                                         out_size, s).double()
+    torch.cuda.synchronize()
+    assert tra.LAUNCHES["roi_align_backward"] == before + 1
+    assert f.grad.dtype == feats.dtype and f.grad.shape == feats.shape
+    bound = 1e-5 * terms + 1e-6
+    if feats.dtype == torch.bfloat16:
+        _, e = torch.frexp(ref.double())
+        bound = bound + torch.where(ref == 0, 0.0, torch.ldexp(torch.ones_like(bound), e - 8))
+    err = (f.grad.double() - ref.double()).abs()
+    assert bool((err <= bound).all()), float((err / bound).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [8, 6])
+@pytest.mark.parametrize("out_size,s", [(7, 2), (4, 1), (14, 2)])
+def test_backward_agrees_with_plain_at_the_borders(cuda_device, out_size, s, c, dtype):
+    gen = torch.Generator().manual_seed(c + s)
+    feats = torch.rand((1, 20, 24, c), generator=gen).to(cuda_device, dtype)
+    boxes = torch.tensor(BOXES, device=cuda_device)
+    idx = torch.zeros(len(BOXES), dtype=torch.int32, device=cuda_device)
+    _assert_backward_agrees(feats, boxes, idx, out_size, s, gen)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_agrees_over_a_batch(cuda_device, dtype):
+    gen = torch.Generator().manual_seed(4)
+    feats, boxes, idx = _batch_inputs(gen, cuda_device, r=97)
+    _assert_backward_agrees(feats.to(dtype), boxes, idx, 14, 2, gen)
+
+
+def test_out_of_range_image_takes_no_gradient(cuda_device):
+    feats = torch.rand((2, 8, 8, 4), device=cuda_device, requires_grad=True)
+    boxes = torch.tensor([[1.0, 1.0, 5.0, 5.0]] * 2, device=cuda_device)
+    idx = torch.tensor([2, -1], dtype=torch.int32, device=cuda_device)
+    tra.roi_align(feats, boxes, idx, 4, 2).sum().backward()
+    torch.cuda.synchronize()
+    assert not feats.grad.any()
+
+
+def test_no_gradient_runs_no_backward(cuda_device):
+    feats = torch.rand((1, 8, 8, 4), device=cuda_device, requires_grad=True)
+    boxes = torch.tensor([[1.0, 1.0, 5.0, 5.0]], device=cuda_device)
+    before = dict(tra.LAUNCHES)
+    with torch.no_grad():
+        out = tra.roi_align(feats, boxes, None, 4, 2)
+    assert not out.requires_grad
+    assert tra.LAUNCHES["roi_align"] == before["roi_align"] + 1
+    assert tra.LAUNCHES["roi_align_backward"] == before["roi_align_backward"]

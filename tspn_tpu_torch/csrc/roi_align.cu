@@ -1,5 +1,6 @@
 // RoIAlign (K7) for sm_90a: direct bilinear sampling over channels-last
-// feature maps, every image's RoIs in one launch.
+// feature maps, every image's RoIs in one launch; f32 or bf16 maps, and the
+// backward into the feature map.
 //
 // Replaces tspn_tpu/ops/roi_align.py::roi_align_pallas (_kernel_roi),
 // which builds one pooled interpolation matrix G (out^2, H*W) per RoI and
@@ -8,29 +9,52 @@
 // bilinear samples, with torchvision's aligned=True border rules (see
 // ops/roi_align.py). No G, no GEMM.
 //
-// Layout: features (N, H, W, C) f32 channels-last, boxes (R, 4) xyxy in
-// feature coordinates, batch_idx (R,) int32, out (R, out, out, C) f32.
-// One block per (RoI, output row i); its threads span the channels, VEC
-// (4 or 1) contiguous floats each, so every bilinear tap is a coalesced
-// read of a C row and every store a coalesced write. The block's sample
-// coordinates (out*s along x, s along y) are computed once into shared
-// memory; the block then walks the out bins of its row, whose taps
-// neighbour each other and hit L1.
+// Forward. Layout: features (N, H, W, C) channels-last in f32 or bf16,
+// boxes (R, 4) xyxy in feature coordinates (f32), batch_idx (R,) int32,
+// out (R, out, out, C) in the map's type. One block per (RoI, output row
+// i); its threads span the channels, VEC (4 or 1) contiguous elements each,
+// so every bilinear tap is a coalesced read of a C row and every store a
+// coalesced write. The block's sample coordinates (out*s along x, s along
+// y) are computed once into shared memory; the block then walks the out
+// bins of its row, whose taps neighbour each other and hit L1.
 //
 // Bound: bytes. At the detector's geometry (8 images x 40x40x1024,
-// 2048 RoIs, out 14, s 2) the output alone is 1.64 GB against 52 MB of
-// features, about 40 FLOP per output float, so the kernel streams its
-// output with evict-first stores (__stcs) and leaves L2 to the features.
+// 2048 RoIs, out 14, s 2) the output alone is 1.64 GB in f32 (0.82 GB in
+// bf16) against 52 MB of features, about 40 FLOP per output element, so
+// the kernel streams its output with evict-first stores (__stcs) and
+// leaves L2 to the features.
 //
 // Arithmetic mirrors the plain version (roi_align_plain) op for op, with
 // round-to-nearest intrinsics so that nvcc contracts nothing into FMAs:
 // coordinates lo + ((k + .5) / s) * (extent / out); rows first
 // (f[y0] * wy0 + f[y1] * wy1), then columns (row[x0] * wx0 + row[x1] * wx1),
-// then the s x s sum over the count. Only the order of the final mean's
-// sum may differ from PyTorch's reduction.
+// then the s x s sum over the count. A bf16 map is widened exactly to f32
+// as it is read and the output is rounded to bf16 once (RNE), so the bf16
+// half equals roi_align_plain(features.float()).to(bfloat16). The TPU
+// kernel instead rounds each entry of G to bf16 before an f32-accumulated
+// dot: another rounding of the same function.
+//
+// Backward. dOut (R, out, out, C) in f32 or bf16 (widened as read) ->
+// dF (N, H, W, C) f32, zeroed by the caller; the caller rounds dF to bf16
+// once for a bf16 map. dF[y, x] = sum over the RoI's bins (i, j) of
+// WY_i(y) WX_j(x) dOut[i, j] / s^2, where WY_i (WX_j) sums the bilinear
+// weights of bin i's (j's) s samples that land on row y (column x). The
+// block of (RoI, row i) keeps WY_i as a list of at most 2s distinct rows
+// and walks the row's out * s x-samples in order: their columns never
+// decrease, so a two-column window in registers sums every tap that lands
+// on one column (over all bins j of the row) before that column leaves the
+// window, and then adds it into dF once per distinct row with one atomicAdd
+// per channel. A naive scatter issues s^2 * 4 = 16 atomics per output
+// element; this issues |rows of bin row i| x |columns of the RoI|
+// per (RoI, i), about 3 x 15 against 16 x 14 for a 10-pixel-wide RoI at
+// out 14, s 2. The atomics are the bound (and make the sum order
+// nondeterministic): reading dOut once and writing dF once is far less
+// time.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -61,103 +85,294 @@ __device__ __forceinline__ float sample_coord(float lo, float extent, int k, int
   return __fadd_rn(lo, __fmul_rn(grid, __fdiv_rn(extent, (float)out)));
 }
 
-template <int VEC>
-struct Vec;
-template <>
-struct Vec<4> {
-  using T = float4;
-  static __device__ __forceinline__ T load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-  static __device__ __forceinline__ void store(float* p, T v) {
-    __stcs(reinterpret_cast<float4*>(p), v);
-  }
-  static __device__ __forceinline__ T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  template <class F>
-  static __device__ __forceinline__ T map(F f, T a, T b, T c, T d) {
-    return make_float4(f(a.x, b.x, c.x, d.x), f(a.y, b.y, c.y, d.y),
-                       f(a.z, b.z, c.z, d.z), f(a.w, b.w, c.w, d.w));
-  }
-  template <class F>
-  static __device__ __forceinline__ T map2(F f, T a, T b) {
-    return make_float4(f(a.x, b.x), f(a.y, b.y), f(a.z, b.z), f(a.w, b.w));
-  }
-};
-template <>
-struct Vec<1> {
-  using T = float;
-  static __device__ __forceinline__ T load(const float* p) { return __ldg(p); }
-  static __device__ __forceinline__ void store(float* p, T v) { __stcs(p, v); }
-  static __device__ __forceinline__ T zero() { return 0.f; }
-  template <class F>
-  static __device__ __forceinline__ T map(F f, T a, T b, T c, T d) { return f(a, b, c, d); }
-  template <class F>
-  static __device__ __forceinline__ T map2(F f, T a, T b) { return f(a, b); }
+// The box's sampling frame: x0, y0 (shifted by -0.5), width, height.
+struct Frame {
+  float x0, y0, bw, bh;
 };
 
-template <int VEC>
-__global__ void roi_align_kernel(const float* __restrict__ feat,
-                                 const float* __restrict__ boxes,
-                                 const int* __restrict__ batch_idx,
-                                 float* __restrict__ out,
+__device__ __forceinline__ Frame box_frame(const float* boxes, int r) {
+  const float bx0 = boxes[4 * r + 0], by0 = boxes[4 * r + 1];
+  const float bx1 = boxes[4 * r + 2], by1 = boxes[4 * r + 3];
+  return {__fsub_rn(bx0, 0.5f), __fsub_rn(by0, 0.5f), fmaxf(__fsub_rn(bx1, bx0), 1e-6f),
+          fmaxf(__fsub_rn(by1, by0), 1e-6f)};
+}
+
+// VEC consecutive channels of a T row <-> floats. bf16 widens exactly
+// (the bits shifted into the high half) and rounds once by RNE.
+template <typename T, int VEC>
+struct IO;
+
+template <>
+struct IO<float, 4> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+};
+
+template <>
+struct IO<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) { v[0] = __ldg(p); }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) { __stcs(p, v[0]); }
+};
+
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+template <>
+struct IO<__nv_bfloat16, 4> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[4]) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = bf16_lo(q.x);
+    v[1] = bf16_hi(q.x);
+    v[2] = bf16_lo(q.y);
+    v[3] = bf16_hi(q.y);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[4]) {
+    __stcs(reinterpret_cast<uint2*>(p),
+           make_uint2(bf16_bits(v[0]) | (bf16_bits(v[1]) << 16),
+                      bf16_bits(v[2]) | (bf16_bits(v[3]) << 16)));
+  }
+};
+
+template <>
+struct IO<__nv_bfloat16, 1> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[1]) {
+    v[0] = bf16_lo((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)));
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[1]) {
+    __stcs(reinterpret_cast<unsigned short*>(p), (unsigned short)bf16_bits(v[0]));
+  }
+};
+
+template <typename T, int VEC>
+__global__ void roi_align_kernel(const T* __restrict__ feat, const float* __restrict__ boxes,
+                                 const int* __restrict__ batch_idx, T* __restrict__ out,
                                  int n_img, int h, int w, int c, int out_size, int s) {
-  using V = Vec<VEC>;
   __shared__ Tap xs[kMaxSamples];
   __shared__ Tap ys[kMaxRatio];
 
   const int r = blockIdx.x / out_size;
   const int i = blockIdx.x % out_size;
-  const float bx0 = boxes[4 * r + 0], by0 = boxes[4 * r + 1];
-  const float bx1 = boxes[4 * r + 2], by1 = boxes[4 * r + 3];
-  const float x0 = __fsub_rn(bx0, 0.5f), y0 = __fsub_rn(by0, 0.5f);
-  const float bw = fmaxf(__fsub_rn(bx1, bx0), 1e-6f);
-  const float bh = fmaxf(__fsub_rn(by1, by0), 1e-6f);
+  const Frame f = box_frame(boxes, r);
   const int n = out_size * s;
   for (int k = threadIdx.x; k < n; k += blockDim.x)
-    xs[k] = bilinear_1d(sample_coord(x0, bw, k, out_size, s), w);
+    xs[k] = bilinear_1d(sample_coord(f.x0, f.bw, k, out_size, s), w);
   for (int k = threadIdx.x; k < s; k += blockDim.x)
-    ys[k] = bilinear_1d(sample_coord(y0, bh, i * s + k, out_size, s), h);
+    ys[k] = bilinear_1d(sample_coord(f.y0, f.bh, i * s + k, out_size, s), h);
   __syncthreads();
 
   const int cv = c / VEC;  // vectors per channel row
   const int v = blockIdx.y * blockDim.x + threadIdx.x;
   if (v >= cv) return;
   const int ch = v * VEC;
-  float* dst = out + ((size_t)r * out_size + i) * out_size * c + ch;
+  T* dst = out + ((size_t)r * out_size + i) * out_size * c + ch;
   const int b = batch_idx[r];
   if (b < 0 || b >= n_img) {  // no such image: the RoI pools nothing
-    for (int j = 0; j < out_size; ++j) V::store(dst + (size_t)j * c, V::zero());
+    const float zero[VEC] = {};
+    for (int j = 0; j < out_size; ++j) IO<T, VEC>::store(dst + (size_t)j * c, zero);
     return;
   }
-  const float* img = feat + (size_t)b * h * w * c + ch;
+  const T* img = feat + (size_t)b * h * w * c + ch;
   const float count = (float)(s * s);
 
   for (int j = 0; j < out_size; ++j) {
-    typename V::T acc = V::zero();
+    float acc[VEC] = {};
     for (int ky = 0; ky < s; ++ky) {
       const Tap ty = ys[ky];
-      const float* row0 = img + (size_t)ty.i0 * w * c;
-      const float* row1 = img + (size_t)ty.i1 * w * c;
+      const T* row0 = img + (size_t)ty.i0 * w * c;
+      const T* row1 = img + (size_t)ty.i1 * w * c;
       for (int kx = 0; kx < s; ++kx) {
         const Tap tx = xs[j * s + kx];
-        const typename V::T f00 = V::load(row0 + (size_t)tx.i0 * c);
-        const typename V::T f10 = V::load(row1 + (size_t)tx.i0 * c);
-        const typename V::T f01 = V::load(row0 + (size_t)tx.i1 * c);
-        const typename V::T f11 = V::load(row1 + (size_t)tx.i1 * c);
-        // (f00 * wy0 + f10 * wy1) * wx0 + (f01 * wy0 + f11 * wy1) * wx1
-        const typename V::T smp = V::map(
-            [&](float a, float bb, float cc, float d) {
-              const float col0 = __fadd_rn(__fmul_rn(a, ty.w0), __fmul_rn(bb, ty.w1));
-              const float col1 = __fadd_rn(__fmul_rn(cc, ty.w0), __fmul_rn(d, ty.w1));
-              return __fadd_rn(__fmul_rn(col0, tx.w0), __fmul_rn(col1, tx.w1));
-            },
-            f00, f10, f01, f11);
-        acc = V::map2([](float a, float bb) { return __fadd_rn(a, bb); }, acc, smp);
+        float f00[VEC], f10[VEC], f01[VEC], f11[VEC];
+        IO<T, VEC>::load(row0 + (size_t)tx.i0 * c, f00);
+        IO<T, VEC>::load(row1 + (size_t)tx.i0 * c, f10);
+        IO<T, VEC>::load(row0 + (size_t)tx.i1 * c, f01);
+        IO<T, VEC>::load(row1 + (size_t)tx.i1 * c, f11);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          // (f00 * wy0 + f10 * wy1) * wx0 + (f01 * wy0 + f11 * wy1) * wx1
+          const float col0 = __fadd_rn(__fmul_rn(f00[e], ty.w0), __fmul_rn(f10[e], ty.w1));
+          const float col1 = __fadd_rn(__fmul_rn(f01[e], ty.w0), __fmul_rn(f11[e], ty.w1));
+          acc[e] = __fadd_rn(acc[e], __fadd_rn(__fmul_rn(col0, tx.w0), __fmul_rn(col1, tx.w1)));
+        }
       }
     }
-    V::store(dst + (size_t)j * c,
-             V::map2([&](float a, float) { return __fdiv_rn(a, count); }, acc, acc));
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = __fdiv_rn(acc[e], count);
+    IO<T, VEC>::store(dst + (size_t)j * c, acc);
   }
+}
+
+// One column's summed taps into dF at each of the bin row's distinct rows.
+template <int VEC>
+__device__ __forceinline__ void scatter_column(float* img, int x, const float (&a)[VEC],
+                                               const int* rows, const float* wts, int m, int w,
+                                               int c) {
+  for (int e2 = 0; e2 < m; ++e2) {
+    float* p = img + ((size_t)rows[e2] * w + x) * c;
+    const float wy = wts[e2];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) atomicAdd(p + e, __fmul_rn(a[e], wy));
+  }
+}
+
+template <typename G, int VEC>
+__global__ void roi_align_backward_kernel(const G* __restrict__ dout,
+                                          const float* __restrict__ boxes,
+                                          const int* __restrict__ batch_idx,
+                                          float* __restrict__ dfeat, int n_img, int h, int w,
+                                          int c, int out_size, int s) {
+  __shared__ Tap xs[kMaxSamples];
+  __shared__ int rows[2 * kMaxRatio];
+  __shared__ float wts[2 * kMaxRatio];
+  __shared__ int n_rows;
+
+  const int r = blockIdx.x / out_size;
+  const int i = blockIdx.x % out_size;
+  const int b = batch_idx[r];
+  if (b < 0 || b >= n_img) return;  // the RoI pooled nothing: no gradient
+  const Frame f = box_frame(boxes, r);
+  const int n = out_size * s;
+  for (int k = threadIdx.x; k < n; k += blockDim.x)
+    xs[k] = bilinear_1d(sample_coord(f.x0, f.bw, k, out_size, s), w);
+  if (threadIdx.x == 0) {
+    // WY_i / s^2: the bin row's distinct feature rows, each with the summed
+    // weight of the taps of its s samples that land there
+    const float count = (float)(s * s);
+    int m = 0;
+    for (int ky = 0; ky < s; ++ky) {
+      const Tap t = bilinear_1d(sample_coord(f.y0, f.bh, i * s + ky, out_size, s), h);
+      const int idx[2] = {t.i0, t.i1};
+      const float wt[2] = {t.w0, t.w1};
+      for (int q = 0; q < 2; ++q) {
+        if (wt[q] == 0.f) continue;
+        int e = 0;
+        while (e < m && rows[e] != idx[q]) ++e;
+        if (e == m) {
+          rows[m] = idx[q];
+          wts[m++] = wt[q];
+        } else {
+          wts[e] = __fadd_rn(wts[e], wt[q]);
+        }
+      }
+    }
+    for (int e = 0; e < m; ++e) wts[e] = __fdiv_rn(wts[e], count);
+    n_rows = m;
+  }
+  __syncthreads();
+
+  const int cv = c / VEC;
+  const int v = blockIdx.y * blockDim.x + threadIdx.x;
+  const int m = n_rows;
+  if (v >= cv || m == 0) return;
+  const int ch = v * VEC;
+  const G* src = dout + ((size_t)r * out_size + i) * out_size * c + ch;
+  float* img = dfeat + (size_t)b * h * w * c + ch;
+
+  // the window: columns base and base + 1, with their summed taps
+  float acc0[VEC] = {}, acc1[VEC] = {};
+  bool hit0 = false, hit1 = false;
+  int base = -1;
+  for (int j = 0; j < out_size; ++j) {
+    float d[VEC];
+    IO<G, VEC>::load(src + (size_t)j * c, d);
+    for (int kx = 0; kx < s; ++kx) {
+      const Tap t = xs[j * s + kx];
+      if (t.w0 == 0.f && t.w1 == 0.f) continue;  // a sample off the map
+      if (base >= 0 && t.i0 != base) {  // the window moves right: flush what leaves it
+        if (hit0) scatter_column<VEC>(img, base, acc0, rows, wts, m, w, c);
+        if (t.i0 == base + 1) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            acc0[e] = acc1[e];
+            acc1[e] = 0.f;
+          }
+          hit0 = hit1;
+        } else {
+          if (hit1) scatter_column<VEC>(img, base + 1, acc1, rows, wts, m, w, c);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc0[e] = acc1[e] = 0.f;
+          hit0 = false;
+        }
+        hit1 = false;
+      }
+      base = t.i0;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc0[e] = __fadd_rn(acc0[e], __fmul_rn(t.w0, d[e]));
+      hit0 = true;
+      if (t.w1 != 0.f) {  // i1 = i0 + 1 (at the top edge i1 = i0 and w1 = 0)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc1[e] = __fadd_rn(acc1[e], __fmul_rn(t.w1, d[e]));
+        hit1 = true;
+      }
+    }
+  }
+  if (hit0) scatter_column<VEC>(img, base, acc0, rows, wts, m, w, c);
+  if (hit1) scatter_column<VEC>(img, base + 1, acc1, rows, wts, m, w, c);
+}
+
+int check_geometry(int h, int w, int c, int out_size, int s, int vec) {
+  if (out_size <= 0 || s <= 0 || s > kMaxRatio || out_size * s > kMaxSamples || h <= 0 ||
+      w <= 0 || (vec != 1 && vec != 4) || c % vec)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+dim3 grid_of(int r, int out_size, int c, int vec, int* threads) {
+  const int cv = c / vec;
+  *threads = cv >= 256 ? 256 : ((cv + 31) / 32) * 32;
+  return dim3((unsigned)(r * out_size), (unsigned)((cv + *threads - 1) / *threads));
+}
+
+template <typename T>
+int launch_forward(const void* feat, const void* boxes, const void* batch_idx, void* out, int r,
+                   int n_img, int h, int w, int c, int out_size, int s, int vec, void* stream) {
+  if (r <= 0 || c <= 0) return 0;
+  if (const int err = check_geometry(h, w, c, out_size, s, vec)) return err;
+  int threads;
+  const dim3 grid = grid_of(r, out_size, c, vec, &threads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* f = static_cast<const T*>(feat);
+  const float* bx = static_cast<const float*>(boxes);
+  const int* bi = static_cast<const int*>(batch_idx);
+  T* o = static_cast<T*>(out);
+  if (vec == 4)
+    roi_align_kernel<T, 4><<<grid, threads, 0, st>>>(f, bx, bi, o, n_img, h, w, c, out_size, s);
+  else
+    roi_align_kernel<T, 1><<<grid, threads, 0, st>>>(f, bx, bi, o, n_img, h, w, c, out_size, s);
+  return (int)cudaGetLastError();
+}
+
+template <typename G>
+int launch_backward(const void* dout, const void* boxes, const void* batch_idx, void* dfeat,
+                    int r, int n_img, int h, int w, int c, int out_size, int s, int vec,
+                    void* stream) {
+  if (r <= 0 || c <= 0) return 0;
+  if (const int err = check_geometry(h, w, c, out_size, s, vec)) return err;
+  int threads;
+  const dim3 grid = grid_of(r, out_size, c, vec, &threads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const G* d = static_cast<const G*>(dout);
+  const float* bx = static_cast<const float*>(boxes);
+  const int* bi = static_cast<const int*>(batch_idx);
+  float* df = static_cast<float*>(dfeat);
+  if (vec == 4)
+    roi_align_backward_kernel<G, 4>
+        <<<grid, threads, 0, st>>>(d, bx, bi, df, n_img, h, w, c, out_size, s);
+  else
+    roi_align_backward_kernel<G, 1>
+        <<<grid, threads, 0, st>>>(d, bx, bi, df, n_img, h, w, c, out_size, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -165,21 +380,26 @@ __global__ void roi_align_kernel(const float* __restrict__ feat,
 extern "C" int tspn_roi_align_launch(const void* feat, const void* boxes, const void* batch_idx,
                                      void* out, int r, int n_img, int h, int w, int c,
                                      int out_size, int s, int vec, void* stream) {
-  if (r <= 0 || c <= 0) return 0;
-  if (out_size <= 0 || s <= 0 || s > kMaxRatio || out_size * s > kMaxSamples ||
-      h <= 0 || w <= 0 || (vec != 1 && vec != 4) || c % vec)
-    return (int)cudaErrorInvalidValue;
-  const int cv = c / vec;
-  const int threads = cv >= 256 ? 256 : ((cv + 31) / 32) * 32;
-  const dim3 grid((unsigned)(r * out_size), (unsigned)((cv + threads - 1) / threads));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* f = static_cast<const float*>(feat);
-  const float* bx = static_cast<const float*>(boxes);
-  const int* bi = static_cast<const int*>(batch_idx);
-  float* o = static_cast<float*>(out);
-  if (vec == 4)
-    roi_align_kernel<4><<<grid, threads, 0, st>>>(f, bx, bi, o, n_img, h, w, c, out_size, s);
-  else
-    roi_align_kernel<1><<<grid, threads, 0, st>>>(f, bx, bi, o, n_img, h, w, c, out_size, s);
-  return (int)cudaGetLastError();
+  return launch_forward<float>(feat, boxes, batch_idx, out, r, n_img, h, w, c, out_size, s, vec,
+                               stream);
+}
+
+extern "C" int tspn_roi_align_bf16_launch(const void* feat, const void* boxes,
+                                          const void* batch_idx, void* out, int r, int n_img,
+                                          int h, int w, int c, int out_size, int s, int vec,
+                                          void* stream) {
+  return launch_forward<__nv_bfloat16>(feat, boxes, batch_idx, out, r, n_img, h, w, c, out_size,
+                                       s, vec, stream);
+}
+
+// dout_bf16: 1 when dOut is bf16 (a bf16 map's gradient), 0 for f32.
+extern "C" int tspn_roi_align_backward_launch(const void* dout, const void* boxes,
+                                              const void* batch_idx, void* dfeat, int r,
+                                              int n_img, int h, int w, int c, int out_size,
+                                              int s, int vec, int dout_bf16, void* stream) {
+  if (dout_bf16)
+    return launch_backward<__nv_bfloat16>(dout, boxes, batch_idx, dfeat, r, n_img, h, w, c,
+                                          out_size, s, vec, stream);
+  return launch_backward<float>(dout, boxes, batch_idx, dfeat, r, n_img, h, w, c, out_size, s,
+                                vec, stream);
 }

@@ -147,6 +147,7 @@ def run_detector_eval(
         load_record_image,
         resize_shortest_edge,
     )
+    from tspn_tpu_torch.pipeline import to_numpy
 
     loader = image_loader or load_record_image
     detect = model.detect_tta if tta else model.detect
@@ -168,7 +169,7 @@ def run_detector_eval(
                 canvas[: img.shape[0], : img.shape[1]] = img
                 img = canvas
         images = torch.as_tensor(np.asarray(img, np.float32), device=device)[None]
-        out = {k: v[0].cpu().numpy() for k, v in detect(images).items()}
+        out = {k: to_numpy(v[0]) for k, v in detect(images).items()}
         out["boxes"] = out["boxes"] / scale  # back to annotation coords
         detections[rec["image_id"]] = out
     return evaluate_detections(records, detections)

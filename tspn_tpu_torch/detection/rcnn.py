@@ -1,15 +1,20 @@
-"""Faster R-CNN R-C4 inference (counterpart of tspn_tpu/detection/rcnn.py).
+"""Faster R-CNN R-C4 (counterpart of tspn_tpu/detection/rcnn.py):
+inference and the training forward.
 
   images (N, H, W, 3) -> ResNet C4 backbone (N, H/16, W/16, 1024)
                       -> RPN -> P fixed proposals per image
                       -> RoIAlign 14x14 (K7 on the card) -> res5 -> 2048-d
                       -> (num_classes+1) softmax + 4*num_classes box deltas
-                      -> class-aware NMS at fixed capacity
+                      -> class-aware NMS at fixed capacity (inference), or
+                         the four losses (training)
 
 The JAX model runs one image and is vmapped over a batch; here every stage
-takes the batch natively, and RoIAlign pools all images' RoIs in one
-call. Inference only: the training forward is not ported yet. float32
-only; a bf16 input raises.
+takes the batch natively, and RoIAlign pools all images' RoIs in one call
+(one K7 launch, and one backward launch when training). ``dtype`` is the
+compute type (float32 or bfloat16, flax's ``dtype=``): parameters stay
+float32 and every stage follows JAX's type promotion, so bf16 box deltas
+decoded against f32 anchors give f32 boxes, and bf16 scores are ranked by
+a stable sort.
 """
 
 from __future__ import annotations
@@ -20,10 +25,22 @@ from typing import Dict, NamedTuple
 import torch
 from torch import nn
 
-from tspn_tpu_torch.detection.resnet import FrozenAffine, Res5Head, ResNetC4Backbone
-from tspn_tpu_torch.detection.rpn import RPNHead, make_anchors, select_proposals
-from tspn_tpu_torch.ops.boxes import clip_boxes, decode_boxes, hflip_boxes
-from tspn_tpu_torch.ops.nms import nms
+from tspn_tpu_torch.detection.resnet import (
+    FrozenAffine,
+    Linear,
+    Res5Head,
+    ResNetC4Backbone,
+)
+from tspn_tpu_torch.detection.rpn import (
+    RPNHead,
+    make_anchors,
+    match_anchors_to_gt,
+    rpn_loss,
+    sample_targets,
+    select_proposals,
+)
+from tspn_tpu_torch.ops.boxes import clip_boxes, decode_boxes, encode_boxes, hflip_boxes
+from tspn_tpu_torch.ops.nms import box_iou, nms
 from tspn_tpu_torch.ops.roi_align import roi_align
 
 
@@ -62,17 +79,23 @@ def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
 class FasterRCNN(nn.Module):
     """``roi_pool`` is the RoIAlign function the RoI head calls (the
     ``roi_align`` dispatch); a caller may set another with its signature,
-    as ``chip_smoke.py`` does to hold K7 against the plain version."""
+    as ``chip_smoke.py`` does to hold K7 against the plain version.
+    ``forward`` is the training forward (the four losses); ``detect``,
+    ``detect_tta`` and ``roi_classeme`` serve."""
 
     def __init__(self, cfg: DetectionConfig = DetectionConfig(),
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"detector compute dtype {dtype}: float32 or bfloat16")
         self.cfg = cfg
-        self.backbone = ResNetC4Backbone(cfg.depth)
-        self.rpn_head = RPNHead(1024, len(cfg.anchor_sizes) * len(cfg.anchor_ratios))
-        self.res5 = Res5Head(cfg.depth)
-        self.cls_score = nn.Linear(2048, cfg.num_classes + 1)
-        self.bbox_pred = nn.Linear(2048, 4 * cfg.num_classes)
+        self.dtype = dtype
+        self.backbone = ResNetC4Backbone(cfg.depth, dtype)
+        self.rpn_head = RPNHead(1024, len(cfg.anchor_sizes) * len(cfg.anchor_ratios), dtype)
+        self.res5 = Res5Head(cfg.depth, dtype)
+        self.cls_score = Linear(2048, cfg.num_classes + 1, dtype=dtype)
+        self.bbox_pred = Linear(2048, 4 * cfg.num_classes, dtype=dtype)
         self.roi_pool = roi_align
         self.reset_parameters(generator)
 
@@ -100,12 +123,8 @@ class FasterRCNN(nn.Module):
 
     # ---------------------------------------------------------------- core
     def features(self, images: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) f32 images -> (N, H/16, W/16, 1024) contiguous."""
-        if images.dtype != torch.float32:
-            raise NotImplementedError(
-                f"detector in {images.dtype}: only float32 is ported (bf16 is "
-                "queued, ROADMAP queue 1)"
-            )
+        """(N, H, W, 3) images -> (N, H/16, W/16, 1024) contiguous, in the
+        compute dtype (the stem casts the images, as flax's first conv)."""
         x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         return self.backbone(x).permute(0, 2, 3, 1).contiguous()
 
@@ -125,6 +144,67 @@ class FasterRCNN(nn.Module):
         cls_logits = self.cls_score(embeddings).reshape(n, p, -1)
         deltas = self.bbox_pred(embeddings).reshape(n, p, c.num_classes, 4)
         return cls_logits, deltas
+
+    # ------------------------------------------------------------- training
+    def forward(self, images: torch.Tensor, gt_boxes: torch.Tensor,
+                gt_classes: torch.Tensor, gt_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Training forward over a batch -> the four losses, each the mean
+        over the images of JAX's per-image loss (``make_detector_train_step``
+        averages its vmapped losses): images (N, H, W, 3), gt_boxes (N, G,
+        4) xyxy, gt_classes (N, G) int in [0, C), gt_mask (N, G)."""
+        c = self.cfg
+        n, h, w = images.shape[:3]
+        feats = self.features(images)
+        logits, deltas = self._rpn(feats)
+        anchors = make_anchors(feats.shape[1], feats.shape[2], c.stride, c.anchor_sizes,
+                               c.anchor_ratios, device=feats.device)
+        rpn_targets = match_anchors_to_gt(anchors, gt_boxes, gt_mask)
+        loss_obj, loss_box = rpn_loss(logits, deltas, anchors, rpn_targets,
+                                      c.rpn_batch_size, c.rpn_positive_fraction)
+
+        with torch.no_grad():
+            props = select_proposals(logits.detach(), deltas.detach(), anchors, (h, w),
+                                     c.pre_nms_topk_train, c.post_nms_topk_train,
+                                     c.rpn_nms_threshold)
+            # the GT boxes join the proposals (detectron2's C4 practice)
+            boxes = torch.cat([props.boxes, gt_boxes], dim=1)  # (N, P + G, 4)
+            valid = torch.cat([props.mask, gt_mask > 0], dim=1)
+            iou = torch.where(gt_mask[:, None, :] > 0, box_iou(boxes, gt_boxes), -1.0)
+            best_iou, best_gt = iou.max(dim=2)  # the first maximum, as jnp.argmax
+            is_fg = (best_iou >= c.roi_fg_threshold) & valid
+            is_bg = ~is_fg & valid
+            labels = torch.where(is_fg, 1.0, torch.where(is_bg, 0.0, -1.0))
+            # the highest-overlap RoIs first (the appended GT have IoU 1)
+            weights = sample_targets(labels, c.roi_batch_size, c.roi_positive_fraction,
+                                     priority=best_iou)
+            # the sampled RoIs in index order into a fixed roi_batch_size set
+            taken = weights > 0
+            rank = torch.where(taken, torch.cumsum(taken.long(), dim=1) - 1, 10**9)
+            order = torch.argsort(rank, dim=1, stable=True)[:, : c.roi_batch_size]
+            roi_boxes = torch.gather(boxes, 1, order[..., None].expand(*order.shape, 4))
+            roi_valid = torch.gather(taken, 1, order)
+            roi_fg = torch.gather(is_fg, 1, order)
+            roi_gt = torch.gather(best_gt, 1, order)
+            roi_cls = torch.where(roi_fg, torch.gather(gt_classes.long(), 1, roi_gt),
+                                  c.num_classes)  # background = C
+
+        cls_logits, box_deltas = self._roi_forward(feats, roi_boxes)
+        # optax.softmax_cross_entropy_with_integer_labels
+        ce = torch.logsumexp(cls_logits, dim=-1) - torch.gather(
+            cls_logits, 2, roi_cls[..., None])[..., 0]
+        denom = roi_valid.sum(dim=1).clamp(min=1).to(torch.float32)
+        loss_cls = (ce * roi_valid).sum(dim=1) / denom
+
+        fg_deltas = torch.gather(
+            box_deltas, 2,
+            roi_cls.clamp(0, c.num_classes - 1)[..., None, None].expand(n, -1, 1, 4))[:, :, 0]
+        gt_of_roi = torch.gather(gt_boxes, 1, roi_gt[..., None].expand(*roi_gt.shape, 4))
+        delta_targets = encode_boxes(gt_of_roi, roi_boxes)
+        # detectron2's C4 recipe: SMOOTH_L1_BETA 0, pure L1
+        l1 = (fg_deltas - delta_targets).abs().sum(-1)
+        loss_roi_box = (l1 * roi_fg * roi_valid).sum(dim=1) / denom
+        return {"loss_rpn_obj": loss_obj.mean(), "loss_rpn_box": loss_box.mean(),
+                "loss_cls": loss_cls.mean(), "loss_box": loss_roi_box.mean()}
 
     # ------------------------------------------------------------ inference
     @torch.no_grad()

@@ -9,11 +9,18 @@ give NCHW tensors, as torch convs do; run them channels-last on the card
 output is already the (N, H, W, C) map that RoIAlign reads. Parameter
 names follow the flax tree (``stem_conv``, ``res2.block0.conv1``, ...),
 so a JAX checkpoint maps across by name.
+
+``dtype`` is the compute type, as flax's ``dtype=``: parameters stay f32,
+and each conv and Dense casts its input and weight to the compute type
+(bias added after, as flax adds it); FrozenAffine casts scale and bias and
+keeps the multiply and the add as two rounded ops. Explicit casts, not
+``torch.autocast``, whose op lists are not flax's.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # stage depths (26 = one bottleneck per stage, for tests/smoke)
@@ -28,35 +35,64 @@ RESNET_DEPTHS = {
 class FrozenAffine(nn.Module):
     """Per-channel scale + bias over NCHW (FrozenBatchNorm equivalent)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.scale[:, None, None] + self.bias[:, None, None]
+        dt = self.compute_dtype
+        return x * self.scale.to(dt)[:, None, None] + self.bias.to(dt)[:, None, None]
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=padding, bias=False)
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in ``dtype`` (flax ``nn.Conv(dtype=...)``)."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in ``dtype`` (flax ``nn.Dense(dtype=...)``)."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
+          dtype: torch.dtype = torch.float32) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=padding, bias=False, dtype=dtype)
 
 
 class Bottleneck(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
-                 bottleneck_channels: int, stride: int = 1):
+                 bottleneck_channels: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.has_shortcut = in_channels != out_channels or stride != 1
         if self.has_shortcut:
             # 1x1 at the block's stride, no padding
-            self.shortcut = _conv(in_channels, out_channels, 1, stride)
-            self.shortcut_norm = FrozenAffine(out_channels)
-        self.conv1 = _conv(in_channels, bottleneck_channels, 1)
-        self.norm1 = FrozenAffine(bottleneck_channels)
+            self.shortcut = _conv(in_channels, out_channels, 1, stride, dtype=dtype)
+            self.shortcut_norm = FrozenAffine(out_channels, dtype)
+        self.conv1 = _conv(in_channels, bottleneck_channels, 1, dtype=dtype)
+        self.norm1 = FrozenAffine(bottleneck_channels, dtype)
         # the stride is on the 3x3, with explicit (1, 1) padding
-        self.conv2 = _conv(bottleneck_channels, bottleneck_channels, 3, stride, 1)
-        self.norm2 = FrozenAffine(bottleneck_channels)
-        self.conv3 = _conv(bottleneck_channels, out_channels, 1)
-        self.norm3 = FrozenAffine(out_channels)
+        self.conv2 = _conv(bottleneck_channels, bottleneck_channels, 3, stride, 1, dtype)
+        self.norm2 = FrozenAffine(bottleneck_channels, dtype)
+        self.conv3 = _conv(bottleneck_channels, out_channels, 1, dtype=dtype)
+        self.norm3 = FrozenAffine(out_channels, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x
@@ -70,12 +106,13 @@ class Bottleneck(nn.Module):
 
 class ResStage(nn.Module):
     def __init__(self, num_blocks: int, in_channels: int, out_channels: int,
-                 bottleneck_channels: int, first_stride: int = 2):
+                 bottleneck_channels: int, first_stride: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         for i in range(num_blocks):
             self.add_module(f"block{i}", Bottleneck(
                 in_channels if i == 0 else out_channels, out_channels,
-                bottleneck_channels, stride=first_stride if i == 0 else 1,
+                bottleneck_channels, stride=first_stride if i == 0 else 1, dtype=dtype,
             ))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -87,16 +124,16 @@ class ResStage(nn.Module):
 class ResNetC4Backbone(nn.Module):
     """stem + res2..res4: images (N, 3, H, W) -> (N, 1024, H/16, W/16)."""
 
-    def __init__(self, depth: int = 101):
+    def __init__(self, depth: int = 101, dtype: torch.dtype = torch.float32):
         super().__init__()
         d2, d3, d4, _ = RESNET_DEPTHS[depth]
-        self.stem_conv = _conv(3, 64, 7, stride=2, padding=3)
-        self.stem_norm = FrozenAffine(64)
+        self.stem_conv = _conv(3, 64, 7, stride=2, padding=3, dtype=dtype)
+        self.stem_norm = FrozenAffine(64, dtype)
         # torch pads the max-pool with -inf, as flax does
         self.pool = nn.MaxPool2d(3, stride=2, padding=1)
-        self.res2 = ResStage(d2, 64, 256, 64, first_stride=1)
-        self.res3 = ResStage(d3, 256, 512, 128)
-        self.res4 = ResStage(d4, 512, 1024, 256)
+        self.res2 = ResStage(d2, 64, 256, 64, first_stride=1, dtype=dtype)
+        self.res3 = ResStage(d3, 256, 512, 128, dtype=dtype)
+        self.res4 = ResStage(d4, 512, 1024, 256, dtype=dtype)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.stem_norm(self.stem_conv(images)))
@@ -108,9 +145,10 @@ class Res5Head(nn.Module):
     """res5 on RoI features: (R, 1024, 14, 14) -> (R, 2048) through the
     stride-2 stage and a mean over the spatial axes (the C4 box head)."""
 
-    def __init__(self, depth: int = 101):
+    def __init__(self, depth: int = 101, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.res5 = ResStage(RESNET_DEPTHS[depth][3], 1024, 2048, 512, first_stride=2)
+        self.res5 = ResStage(RESNET_DEPTHS[depth][3], 1024, 2048, 512, first_stride=2,
+                             dtype=dtype)
 
     def forward(self, roi_feats: torch.Tensor) -> torch.Tensor:
         return self.res5(roi_feats).mean(dim=(2, 3))

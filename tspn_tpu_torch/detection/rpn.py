@@ -1,10 +1,13 @@
-"""Region Proposal Network, single-level C4, inference half (counterpart
-of tspn_tpu/detection/rpn.py).
+"""Region Proposal Network, single-level C4 (counterpart of
+tspn_tpu/detection/rpn.py), for a batch of images at once.
 
-3x3 conv + 1x1 objectness / delta heads over stride-16 anchors, then
-pre-NMS top-k, decode, clip and NMS into fixed-size proposal lists, for a
-batch of images at once. The training half (anchor matching, sampling,
-the RPN loss) is not ported yet.
+Inference: 3x3 conv + 1x1 objectness / delta heads over stride-16
+anchors, then pre-NMS top-k, decode, clip and NMS into fixed-size
+proposal lists. Training: IoU anchor matching (fg 0.7 / bg 0.3 / each
+GT's best anchors forced fg), the deterministic balanced sampler and the
+RPN loss. Every function takes a leading image axis where JAX's takes one
+image under ``vmap``; ties break as JAX's do (a stable sort on the same
+key, the first maximum).
 """
 
 from __future__ import annotations
@@ -14,17 +17,19 @@ from typing import NamedTuple, Sequence
 import torch
 from torch import nn
 
-from tspn_tpu_torch.ops.boxes import anchor_grid, clip_boxes, decode_boxes
-from tspn_tpu_torch.ops.nms import nms
+from tspn_tpu_torch.detection.resnet import Conv2d
+from tspn_tpu_torch.ops.boxes import anchor_grid, clip_boxes, decode_boxes, encode_boxes
+from tspn_tpu_torch.ops.nms import box_iou, nms
+from tspn_tpu_torch.parallel.train_step import sigmoid_bce
 
 
 class RPNHead(nn.Module):
-    def __init__(self, channels: int, num_anchors: int):
+    def __init__(self, channels: int, num_anchors: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_anchors = num_anchors
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)  # flax "SAME"
-        self.objectness = nn.Conv2d(channels, num_anchors, 1)
-        self.deltas = nn.Conv2d(channels, num_anchors * 4, 1)
+        self.conv = Conv2d(channels, channels, 3, padding=1, dtype=dtype)  # flax "SAME"
+        self.objectness = Conv2d(channels, num_anchors, 1, dtype=dtype)
+        self.deltas = Conv2d(channels, num_anchors * 4, 1, dtype=dtype)
 
     def forward(self, feats: torch.Tensor):
         """(N, C, H, W) -> objectness (N, H*W*A), deltas (N, H*W*A, 4), row-
@@ -85,3 +90,90 @@ def make_anchors(
         anchor_grid(feat_h, feat_w, stride, sizes, ratios), dtype=torch.float32,
         device=device,
     )
+
+
+class RPNTargets(NamedTuple):
+    labels: torch.Tensor      # (N, K) 1 fg / 0 bg / -1 ignore
+    matched_gt: torch.Tensor  # (N, K, 4)
+
+
+def match_anchors_to_gt(
+    anchors: torch.Tensor,    # (K, 4)
+    gt_boxes: torch.Tensor,   # (N, G, 4)
+    gt_mask: torch.Tensor,    # (N, G)
+    fg_threshold: float = 0.7,
+    bg_threshold: float = 0.3,
+) -> RPNTargets:
+    """IoU matching: fg at >= fg_threshold or where an anchor reaches a
+    GT's best IoU (ties included), bg below bg_threshold, the rest
+    ignored; every anchor is bg in an image without GT."""
+    real = gt_mask[:, None, :] > 0
+    iou = torch.where(real, box_iou(anchors, gt_boxes), -1.0)  # (N, K, G)
+    best_iou, best_gt = iou.max(dim=2)  # the first maximum, as jnp.argmax
+    gt_best_iou = iou.max(dim=1, keepdim=True).values  # (N, 1, G)
+    forced = ((iou >= gt_best_iou) & real & (iou > 0)).any(dim=2)
+    any_gt = (gt_mask > 0).any(dim=1, keepdim=True)
+    fg = ((best_iou >= fg_threshold) | forced) & any_gt
+    bg = (best_iou < bg_threshold) | ~any_gt
+    labels = torch.where(fg, 1.0, torch.where(bg, 0.0, -1.0))
+    matched = torch.gather(gt_boxes, 1, best_gt[..., None].expand(*best_gt.shape, 4))
+    return RPNTargets(labels, matched)
+
+
+def sample_targets(
+    labels: torch.Tensor,     # (N, K)
+    batch_size: int,
+    positive_fraction: float,
+    priority: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Deterministic balanced sample -> (N, K) float32 weights in {0, 1}: up
+    to batch_size * fraction fg plus bg to fill, the highest ``priority``
+    first (raster order without one). Ties in priority go to the lower
+    index: a stable sort, as ``jnp.argsort``."""
+    num_pos = int(batch_size * positive_fraction)
+    is_fg = labels == 1.0
+    is_bg = labels == 0.0
+
+    def take(mask, budget):
+        if priority is None:
+            rank = torch.where(mask, torch.cumsum(mask.long(), dim=1), 10**9)
+            return mask & (rank <= budget)
+        key = torch.where(mask, priority, torch.tensor(float("-inf"), dtype=priority.dtype,
+                                                       device=priority.device))
+        order = torch.argsort(-key, dim=1, stable=True)
+        rank = torch.empty_like(order)
+        rank.scatter_(1, order, torch.arange(order.shape[1], device=order.device)
+                      .expand_as(order).contiguous())
+        return mask & (rank < budget)
+
+    take_fg = take(is_fg, num_pos)
+    n_fg = take_fg.sum(dim=1, keepdim=True)
+    take_bg = take(is_bg, batch_size - n_fg)
+    return (take_fg | take_bg).to(torch.float32)
+
+
+def rpn_loss(
+    logits: torch.Tensor,     # (N, K)
+    deltas: torch.Tensor,     # (N, K, 4)
+    anchors: torch.Tensor,    # (K, 4)
+    targets: RPNTargets,
+    batch_size: int = 256,
+    positive_fraction: float = 0.5,
+):
+    """Per image (objectness BCE, L1 box loss) over the sampled anchors,
+    each (N,). The sample takes low-scoring fg and high-scoring bg anchors
+    first (hardness, computed without a gradient)."""
+    with torch.no_grad():
+        hardness = torch.where(targets.labels == 1.0, -logits, logits)
+        weights = sample_targets(targets.labels, batch_size, positive_fraction,
+                                 priority=hardness)
+    bce = sigmoid_bce(logits, targets.labels.clamp(0.0, 1.0))
+    denom = weights.sum(dim=1).clamp(min=1.0)
+    loss_obj = (bce * weights).sum(dim=1) / denom
+
+    fg = (targets.labels == 1.0).to(torch.float32)
+    delta_targets = encode_boxes(targets.matched_gt, anchors)
+    # detectron2's C4 recipe: SMOOTH_L1_BETA 0, pure L1
+    l1 = (deltas - delta_targets).abs().sum(-1)
+    loss_box = (l1 * fg * weights).sum(dim=1) / denom
+    return loss_obj, loss_box

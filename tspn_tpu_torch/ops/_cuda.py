@@ -115,6 +115,14 @@ def roi_align_library() -> ctypes.CDLL:
     return _bound("roi_align", "tspn_roi_align_launch", 4, 8)
 
 
+def roi_align_bf16_library() -> ctypes.CDLL:
+    return _bound("roi_align", "tspn_roi_align_bf16_launch", 4, 8)
+
+
+def roi_align_backward_library() -> ctypes.CDLL:
+    return _bound("roi_align", "tspn_roi_align_backward_launch", 4, 9)
+
+
 def roi_sep_fused_library() -> ctypes.CDLL:
     return _bound("roi_probes", "tspn_roi_sep_fused_launch", 3, 8)
 

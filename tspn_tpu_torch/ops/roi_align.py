@@ -14,9 +14,18 @@ size-1 collapses to the last index. Features are (N, H, W, C), boxes
   columns, then the s x s mean). The kernel's oracle, and the CPU path.
 - ``roi_align_separable``: the two-einsum form of ``roi_align_separable``
   (per-axis pooled weight tables), plain too.
-- ``roi_align``: the dispatch. On a CUDA tensor it launches
-  ``csrc/roi_align.cu`` (K7, direct bilinear sampling, all images' RoIs
-  in one launch) or raises; on a CPU tensor it runs ``roi_align_plain``.
+- ``roi_align``: the dispatch, for float32 or bfloat16 maps. On a CUDA
+  tensor it launches ``csrc/roi_align.cu`` (K7, direct bilinear sampling,
+  all images' RoIs in one launch) or raises; when the features require a
+  gradient it goes through ``RoIAlignFunction``, whose backward is K7's
+  backward kernel (the gradient of the features only: boxes get none, as
+  JAX stops their gradient). On a CPU tensor it runs ``roi_align_plain``,
+  which autograd differentiates.
+
+A bfloat16 map is widened exactly to float32, pooled in float32 and
+rounded once to bfloat16 (RNE), in the kernel and in the plain version
+alike; the backward sums into a float32 buffer and rounds it to bfloat16
+once.
 """
 
 from __future__ import annotations
@@ -25,12 +34,15 @@ import ctypes
 
 import torch
 
-# K7 launches made by the dispatch on CUDA tensors
-LAUNCHES = {"roi_align": 0}
+# K7 launches made by the dispatch on CUDA tensors: the forward on f32 and
+# on bf16 maps, and the backward (either type)
+LAUNCHES = {"roi_align": 0, "roi_align_bf16": 0, "roi_align_backward": 0}
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    LAUNCHES["roi_align"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _as_batch(features: torch.Tensor, boxes: torch.Tensor, batch_idx):
@@ -89,7 +101,12 @@ def roi_align_plain(
     sampling_ratio: int = 2,
 ) -> torch.Tensor:
     """Gather form -> (R, out, out, C); it materializes an (R, out*s, W, C)
-    intermediate, so a caller on the card pools large RoI sets in chunks."""
+    intermediate, so a caller on the card pools large RoI sets in chunks.
+    A bf16 map is pooled as ``features.float()`` and the result rounded to
+    bf16."""
+    if features.dtype == torch.bfloat16:
+        return roi_align_plain(features.float(), boxes, batch_idx, output_size,
+                               sampling_ratio).to(torch.bfloat16)
     features, batch_idx = _as_batch(features, boxes, batch_idx)
     _n, h, w, c = features.shape
     r = boxes.shape[0]
@@ -145,15 +162,12 @@ def roi_align_separable(
     return out * (1.0 / (s * s))
 
 
-def _roi_align_cuda(features, boxes, batch_idx, output_size, sampling_ratio):
-    from tspn_tpu_torch.ops import _cuda
-
-    n, h, w, c = features.shape
+def _check_cuda_operands(features, boxes, batch_idx, output_size, sampling_ratio):
     r = boxes.shape[0]
     if any(t.device != features.device for t in (boxes, batch_idx)):
         raise ValueError("roi_align: all operands must be on one device")
-    if features.dtype != torch.float32 or boxes.dtype != torch.float32:
-        raise TypeError("roi_align: features and boxes must be float32")
+    if features.dtype not in DTYPES or boxes.dtype != torch.float32:
+        raise TypeError("roi_align: features must be float32 or bfloat16, boxes float32")
     if batch_idx.dtype != torch.int32:
         raise TypeError("roi_align: batch_idx must be int32")
     if not all(t.is_contiguous() for t in (features, boxes, batch_idx)):
@@ -164,21 +178,115 @@ def _roi_align_cuda(features, boxes, batch_idx, output_size, sampling_ratio):
     if not (1 <= sampling_ratio <= 16 and output_size * sampling_ratio <= 128):
         raise ValueError(f"roi_align: out {output_size} x s {sampling_ratio} "
                          "exceeds the kernel's 128 samples per axis")
-    out = torch.empty((r, output_size, output_size, c), dtype=torch.float32,
+
+
+def _vec(c: int, *tensors) -> int:
+    """4 channels a thread where C and every row base allow the vector
+    access (16 bytes in f32, 8 in bf16), else 1."""
+    ok = c % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
+    return 4 if ok else 1
+
+
+def _roi_align_cuda(features, boxes, batch_idx, output_size, sampling_ratio):
+    from tspn_tpu_torch.ops import _cuda
+
+    _check_cuda_operands(features, boxes, batch_idx, output_size, sampling_ratio)
+    n, h, w, c = features.shape
+    r = boxes.shape[0]
+    out = torch.empty((r, output_size, output_size, c), dtype=features.dtype,
                       device=features.device)
     if r == 0 or c == 0:
         return out
-    vec = 4 if c % 4 == 0 and features.data_ptr() % 16 == 0 else 1
-    lib = _cuda.roi_align_library()
+    bf16 = features.dtype == torch.bfloat16
+    if bf16:
+        lib, entry, key = _cuda.roi_align_bf16_library(), "tspn_roi_align_bf16_launch", \
+            "roi_align_bf16"
+    else:
+        lib, entry, key = _cuda.roi_align_library(), "tspn_roi_align_launch", "roi_align"
     with torch.cuda.device(features.device):
         stream = torch.cuda.current_stream(features.device).cuda_stream
-        err = lib.tspn_roi_align_launch(
+        err = getattr(lib, entry)(
             features.data_ptr(), boxes.data_ptr(), batch_idx.data_ptr(), out.data_ptr(),
-            r, n, h, w, c, output_size, sampling_ratio, vec, ctypes.c_void_p(stream),
+            r, n, h, w, c, output_size, sampling_ratio, _vec(c, features),
+            ctypes.c_void_p(stream),
         )
-    _cuda.check(err, "tspn_roi_align_launch")
-    LAUNCHES["roi_align"] += 1
+    _cuda.check(err, entry)
+    LAUNCHES[key] += 1
     return out
+
+
+def roi_align_backward_plain(grad_out, boxes, batch_idx, features_shape, features_dtype,
+                             output_size: int = 14, sampling_ratio: int = 2,
+                             chunk: int | None = None):
+    """The vjp of ``roi_align_plain``: dL/dfeatures (N, H, W, C) from dL/dout
+    (R, out, out, C), autograd in f32 over ``chunk`` RoIs at a time (all
+    at once when None), summed in f32 and rounded once to a bf16 map's
+    type. RoIAlign is linear in the features, so no feature values are
+    needed."""
+    r = boxes.shape[0]
+    zeros = torch.zeros(features_shape, dtype=torch.float32, device=grad_out.device)
+    total = torch.zeros_like(zeros)
+    step = chunk or max(r, 1)
+    for k in range(0, r, step):
+        f = zeros.clone().requires_grad_(True)
+        with torch.enable_grad():
+            out = roi_align_plain(f, boxes[k : k + step], batch_idx[k : k + step],
+                                  output_size, sampling_ratio)
+            total += torch.autograd.grad(out, f, grad_out[k : k + step].float())[0]
+    return total.to(features_dtype)
+
+
+def roi_align_backward(grad_out, boxes, batch_idx, features_shape, features_dtype,
+                       output_size: int = 14, sampling_ratio: int = 2):
+    """dL/dfeatures from dL/dout (R, out, out, C) in the map's type: on a
+    CUDA tensor K7's backward (atomics into a zeroed f32 buffer, rounded
+    once to bf16 for a bf16 map), on a CPU tensor
+    ``roi_align_backward_plain``."""
+    if grad_out.device.type == "cpu":
+        return roi_align_backward_plain(grad_out, boxes, batch_idx, features_shape,
+                                        features_dtype, output_size, sampling_ratio)
+    from tspn_tpu_torch.ops import _cuda
+
+    n, h, w, c = features_shape
+    r = boxes.shape[0]
+    if features_dtype not in DTYPES:
+        raise TypeError(f"roi_align backward: a map in {features_dtype}")
+    grad = grad_out.to(features_dtype).contiguous()
+    _check_cuda_operands(grad, boxes, batch_idx, output_size, sampling_ratio)
+    if grad.shape != (r, output_size, output_size, c):
+        raise ValueError(f"roi_align backward: bad gradient shape {tuple(grad.shape)}")
+    dfeat = torch.zeros((n, h, w, c), dtype=torch.float32, device=grad.device)
+    if r and c:
+        lib = _cuda.roi_align_backward_library()
+        with torch.cuda.device(grad.device):
+            stream = torch.cuda.current_stream(grad.device).cuda_stream
+            err = lib.tspn_roi_align_backward_launch(
+                grad.data_ptr(), boxes.data_ptr(), batch_idx.data_ptr(), dfeat.data_ptr(),
+                r, n, h, w, c, output_size, sampling_ratio, _vec(c, grad, dfeat),
+                int(features_dtype == torch.bfloat16), ctypes.c_void_p(stream),
+            )
+        _cuda.check(err, "tspn_roi_align_backward_launch")
+        LAUNCHES["roi_align_backward"] += 1
+    return dfeat.to(features_dtype)
+
+
+class RoIAlignFunction(torch.autograd.Function):
+    """K7 forward with K7's backward: the gradient of the features only
+    (boxes and the image index get None)."""
+
+    @staticmethod
+    def forward(ctx, features, boxes, batch_idx, output_size, sampling_ratio):
+        ctx.save_for_backward(boxes, batch_idx)
+        ctx.geometry = (tuple(features.shape), features.dtype, output_size, sampling_ratio)
+        return _roi_align_cuda(features, boxes, batch_idx, output_size, sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        boxes, batch_idx = ctx.saved_tensors
+        shape, dtype, output_size, sampling_ratio = ctx.geometry
+        dfeat = roi_align_backward(grad_out, boxes, batch_idx, shape, dtype,
+                                   output_size, sampling_ratio)
+        return dfeat, None, None, None, None
 
 
 def roi_align(
@@ -188,17 +296,18 @@ def roi_align(
     output_size: int = 14,
     sampling_ratio: int = 2,
 ) -> torch.Tensor:
-    """RoIAlign -> (R, out, out, C) f32: K7 on a CUDA tensor, the plain
-    gather form on a CPU tensor."""
-    if features.dtype != torch.float32:
-        raise NotImplementedError(
-            f"roi_align in {features.dtype}: only float32 is ported (bf16 is "
-            "queued, ROADMAP queue 1)"
-        )
+    """RoIAlign -> (R, out, out, C) in the map's type (float32 or
+    bfloat16): K7 on a CUDA tensor (with K7's backward when the features
+    require a gradient), the plain gather form on a CPU tensor."""
+    if features.dtype not in DTYPES:
+        raise TypeError(f"roi_align: features in {features.dtype}; float32 or bfloat16")
     features, batch_idx = _as_batch(features, boxes, batch_idx)
     if features.device.type == "cuda":
-        return _roi_align_cuda(features, boxes, batch_idx.to(torch.int32),
-                               output_size, sampling_ratio)
+        batch_idx = batch_idx.to(torch.int32)
+        if torch.is_grad_enabled() and features.requires_grad:
+            return RoIAlignFunction.apply(features, boxes, batch_idx, output_size,
+                                          sampling_ratio)
+        return _roi_align_cuda(features, boxes, batch_idx, output_size, sampling_ratio)
     if features.device.type == "cpu":
         return roi_align_plain(features, boxes, batch_idx, output_size, sampling_ratio)
     raise ValueError(f"roi_align: no implementation for device {features.device}")

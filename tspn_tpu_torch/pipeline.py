@@ -11,13 +11,19 @@ import numpy as np
 import torch
 
 
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A detection tensor on the host; bfloat16 widened exactly to float32."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
 def detect_video_frames(
     model, frames: np.ndarray, *, device, batch_size: int = 8
 ) -> Dict[str, np.ndarray]:
-    """Run the detector (a FasterRCNN on ``device``) over (T, H, W, 3)
-    float32 frames in batches of ``batch_size``, the last batch padded
-    with zero frames and sliced; -> stacked fixed-size
-    detections (T, Dmax, ...) as numpy arrays."""
+    """Run the detector (a FasterRCNN on ``device``, f32 or bf16) over (T,
+    H, W, 3) float32 frames in batches of ``batch_size``, the last batch
+    padded with zero frames and sliced; -> stacked fixed-size detections
+    (T, Dmax, ...) as numpy arrays (a bf16 model's scores as the float32
+    numbers they are: numpy has no bfloat16)."""
     outs = []
     t = frames.shape[0]
     for start in range(0, t, batch_size):
@@ -27,5 +33,5 @@ def detect_video_frames(
             chunk = np.concatenate([chunk, np.zeros_like(chunk[:1]).repeat(pad, 0)])
         images = torch.as_tensor(np.asarray(chunk, np.float32), device=device)
         out = model.detect(images)
-        outs.append({k: v[: batch_size - pad].cpu().numpy() for k, v in out.items()})
+        outs.append({k: to_numpy(v[: batch_size - pad]) for k, v in out.items()})
     return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}

@@ -179,19 +179,25 @@ def jax_params_from_detector_state_dict(state_dict: Dict[str, torch.Tensor]) -> 
 
 
 def load_detector_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A JAX detector checkpoint (flax msgpack, as ``tools/run_pipeline.py``
-    loads it) -> the port's FasterRCNN state dict."""
+    """A detector checkpoint -> the port's FasterRCNN state dict: the
+    port's own (``detection.train.train_detector``'s, a torch.save zip
+    file), or a JAX one (flax msgpack, as ``tools/run_pipeline.py`` loads
+    it). ``load_checkpoint`` reads a native one's SGD momentum, LR schedule
+    and step as well."""
+    if zipfile.is_zipfile(path):
+        return torch.load(path, map_location="cpu", weights_only=True)["model"]
     return detector_state_dict_from_jax(load_jax_checkpoint(path)["params"])
 
 
-def save_checkpoint(path: str, model: torch.nn.Module, step: int = 0,
+def save_checkpoint(path: str, model, step: int = 0,
                     loss: float = 0.0, optimizer=None, scheduler=None,
                     plateau=None) -> str:
-    """torch.save of the model and, for a training checkpoint, the
-    optimizer, the LR scheduler and the plateau state (a
-    ``ReduceOnPlateauState``), written atomically."""
+    """torch.save of the model (a module, or its state dict) and, for a
+    training checkpoint, the optimizer, the LR scheduler and the plateau
+    state (a ``ReduceOnPlateauState``), written atomically."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    blob = {"model": model.state_dict(), "step": step, "loss": loss}
+    state = model if isinstance(model, dict) else model.state_dict()
+    blob = {"model": state, "step": step, "loss": loss}
     if optimizer is not None:
         blob["optimizer"] = optimizer.state_dict()
     if scheduler is not None:

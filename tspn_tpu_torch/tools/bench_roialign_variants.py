@@ -9,8 +9,8 @@ Port of the JAX package's ``tools/bench_roialign_variants.py``. Legs,
 each over the whole batch (RoI r of image b pools image b):
 
   grid      K7 (``ops/roi_align.py::roi_align``, ``csrc/roi_align.cu``: direct
-            bilinear sampling). f32 only: under ``--dtype bf16`` the leg is
-            null with its reason (K7's bf16 half is still to be ported).
+            bilinear sampling), on f32 maps or, under ``--dtype bf16``, K7's
+            bf16 half (f32 arithmetic, the output rounded once to bf16).
   constg    T-roi 3 (``ops/roi_probes.py::roi_constg``): G @ F with G the
             constant box_x0 * 1e-6, f32 out; the lower bound of the G form,
             not RoIAlign. ``torch.matmul`` with the constant G materialized
@@ -49,8 +49,6 @@ from tspn_tpu_torch.ops import roi_probes as rp
 from tspn_tpu_torch.tools import roi_common as rc
 from tspn_tpu_torch.tools.rel_common import device, device_name
 
-GRID_BF16 = "K7 runs float32 maps only; its bf16 half is queued (ROADMAP queue 1, item 9)"
-
 
 def main(argv=None) -> dict:
     args = rc.parser(__doc__.split("\n\n")[0]).parse_args(argv)
@@ -68,20 +66,19 @@ def main(argv=None) -> dict:
         out = ra.roi_align(feats, boxes.reshape(-1, 4), idx)
         return out.reshape(b, r, *out.shape[1:])
 
-    legs = {"grid": grid if args.dtype == "f32" else None,
+    legs = {"grid": grid,
             "constg": lambda: rp.roi_constg(feats, boxes),
             "selector": lambda: rp.roi_selector(feats, boxes),
             "xlasep": lambda: rc.xlasep(feats, boxes),
             "xlasep2": lambda: rc.xlasep2(feats, boxes)}
-    outs = {k: fn() for k, fn in legs.items() if fn is not None}
+    outs = {k: fn() for k, fn in legs.items()}
     oracle = rc.oracle(feats32, boxes)
     terms = rc.sum_terms(feats32, boxes)
     parity = {k: rc.rel_err(o, oracle) for k, o in outs.items() if k != "constg"}
     gates = {}
     for k in ("grid", "selector", "xlasep", "xlasep2"):  # RoIAlign against the oracle
-        if k in outs:
-            gates[k] = rc.over_bound(outs[k], oracle, terms,
-                                     1e-5 if args.dtype == "f32" else 2.0 ** -5)
+        gates[k] = rc.over_bound(outs[k], oracle, terms,
+                                 1e-5 if args.dtype == "f32" else 2.0 ** -5)
     del oracle
     gates["selector_vs_plain"] = rc.over_bound(
         outs["selector"], rp.roi_selector_plain(feats, boxes), terms, 1e-5,
@@ -102,10 +99,6 @@ def main(argv=None) -> dict:
            "hw": hw, "channels": c, "device": name,
            "parity_rel_err": parity, "worst_err_over_bound": gates}
     for k, fn in legs.items():
-        if fn is None:
-            res[f"{k}_ms"], res[f"{k}_iqr_ms"], res[f"{k}_bound"] = None, None, None
-            res[f"{k}_null_reason"] = GRID_BF16
-            continue
         t = rc.time_leg(fn, dev, (feats, boxes), outs[k], ops[k])
         res[f"{k}_ms"], res[f"{k}_iqr_ms"] = t["ms"], t["iqr_ms"]
         res[f"{k}_bound"] = {x: t[x] for x in ("bound_ms", "bound_by", "bytes", "ops")}
