@@ -125,8 +125,12 @@ Phases, in order; any failure raises and the exit code is nonzero:
     roi_sep_fused, roi_selector and roi_constg against their plain
     versions at the RoIAlign tools' defaults (4 x 256 RoIs, 40 x 40 x
     1024) in f32 and bf16 within 1e-5 * T + 1e-6 (plus one bf16 ulp for a
-    bf16 output); time kernel, plain and, for constg, torch.matmul with
-    the constant G materialized (a yardstick the port never calls);
+    bf16 output); time kernel, plain and, for selector and constg,
+    torch.matmul with G materialized (a yardstick the port never calls),
+    each line with its % of the bound; then hold selector and constg (in
+    bf16 the wgmma + TMA kernel, in f32 the SIMT one) to plain within the
+    same bounds at the edges of their stacked-row tiling: one RoI, three,
+    a 29 x 33 map, C = 384 and a 128 x 128 map;
 25. run the two ported RoIAlign tools, python -m
     tspn_tpu_torch.tools.bench_roialign_{fused,variants}, at their
     defaults in f32 and bf16 as one main-path group: each holds its
@@ -253,6 +257,13 @@ REL_CASES = (("tool", NUM_SEGMENTS * 992), ("ragged", NUM_SEGMENTS * 992 - 77), 
 # Kr side schedules: (name, stages, schedule, ks, sidecar width)
 # the RoIAlign probe tools' default geometry: 4 images of 40 x 40 x 1024, 256 RoIs each
 ROI_TOOL = NS(batch=4, rois=256, hw=40, channels=1024)
+# the GEMM's tiling edges (T-roi 2, 3): (name, images, RoIs, H, W, C): one
+# RoI (a single partial 128-row tile), three (tiles straddling RoIs), a
+# non-square map whose 8 x 8 blocks overhang, C = 384 (an odd count of
+# 128-channel tiles) and the largest map taken
+ROI_EDGE_CASES = (("r1", 1, 1, 40, 40, 1024), ("r3", 2, 3, 16, 16, 256),
+                  ("29x33", 2, 5, 29, 33, 256), ("c384", 2, 4, 16, 16, 384),
+                  ("128x128", 1, 4, 128, 128, 256))
 REL_SCHEDULES = (("grid2", 2, "grid", 1, 16), ("grid3", 3, "grid", 1, 16),
                  ("grid4", 4, "grid", 1, 16), ("persistent2", 2, "persistent", 1, 16),
                  ("persistent4", 4, "persistent", 1, 16), ("ksplit2", 2, "grid", 2, 16),
@@ -1424,11 +1435,41 @@ def phase_k3_bf16_check(dev) -> dict:
     return report
 
 
+def roi_edge_inputs(b, r, h, w, c, dev, seed=0):
+    """(b, h, w, c) f32 maps of randn and (b, r, 4) boxes, the first of
+    image 0 across the border."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    feats = torch.randn(b, h, w, c, generator=gen)
+    size = torch.tensor([w, h], dtype=torch.float32)
+    lo = torch.rand(b, r, 2, generator=gen) * (size - 2)
+    wh = 1 + torch.rand(b, r, 2, generator=gen) * (size / 2 - 1)
+    boxes = torch.cat([lo, lo + wh], dim=-1)
+    boxes[0, 0] = torch.tensor([-1.5, -1.0, 3.0, h + 1.0])
+    return feats.to(dev), boxes.to(dev)
+
+
+def roi_within_plain(name, kernel, plain, feats, boxes, terms) -> tuple:
+    """One check of a T-roi kernel against its plain version within
+    1e-5 * T + 1e-6 (plus one bf16 ulp for a bf16 output) -> (the
+    kernel's output, the check's entry)."""
+    from tspn_tpu_torch.tools import roi_common as rc
+
+    out = kernel(feats, boxes)
+    ref = plain(feats, boxes)
+    torch.cuda.synchronize()
+    worst = rc.over_bound(out, ref, terms, 1e-5, ulp=out.dtype == torch.bfloat16)
+    max_err = float((out.double() - ref.double()).abs().max())
+    if not worst <= 1.0 or not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: worst err/bound {worst}, max err {max_err}")
+    return out, {"shape": list(out.shape), "max_abs_err": max_err, "worst_err_over_bound": worst}
+
+
 def phase_roi_check(dev) -> dict:
     """T-roi 1-3 against their plain versions at the tools' default
     geometry in f32 and bf16, within 1e-5 * T + 1e-6 (plus one bf16 ulp
-    for a bf16 output); kernel, plain and, for constg, torch.matmul with
-    the constant G materialized, timed."""
+    for a bf16 output); kernel, plain and, for selector and constg,
+    torch.matmul with G materialized, timed, each beside its bound. Then
+    selector and constg at the tiling edges (ROI_EDGE_CASES), checked."""
     from tspn_tpu_torch.ops import roi_probes as rp
     from tspn_tpu_torch.tools import roi_common as rc
 
@@ -1439,6 +1480,7 @@ def phase_roi_check(dev) -> dict:
     s1, s2 = rc.sep_ops(a.batch, a.rois, a.hw, a.hw, a.channels)
     g_ops = rc.gemm_ops(a.batch, a.rois, a.hw, a.hw, a.channels)
     report = {"roi_sep_fused": {}, "roi_selector": {}, "roi_constg": {}}
+    f2 = feats32.reshape(a.batch, a.hw * a.hw, a.channels)
     for dtype in ("f32", "bf16"):
         feats = feats32.to(rc.DTYPES[dtype])
         kd = rc.kind(feats.dtype)
@@ -1447,33 +1489,41 @@ def phase_roi_check(dev) -> dict:
                  ("roi_selector", rp.roi_selector, rp.roi_selector_plain, terms, {kd: g_ops}),
                  ("roi_constg", rp.roi_constg, rp.roi_constg_plain, const_terms, {kd: g_ops}))
         for name, kernel, plain, t, ops in cases:
-            out = kernel(feats, boxes)
-            ref = plain(feats, boxes)
-            torch.cuda.synchronize()
-            worst = rc.over_bound(out, ref, t, 1e-5, ulp=out.dtype == torch.bfloat16)
-            max_err = float((out.double() - ref.double()).abs().max())
-            if not worst <= 1.0 or not torch.isfinite(out).all():
-                raise AssertionError(f"{name} {dtype}: worst err/bound {worst}, max err {max_err}")
-            entry = {"shape": list(out.shape), "max_abs_err": max_err,
-                     "worst_err_over_bound": worst,
-                     "ms": cuda_median_ms(lambda: kernel(feats, boxes)),
-                     "plain_ms": cuda_median_ms(lambda: plain(feats, boxes), iters=3),
-                     "library_ms": None, **bound((feats, boxes), out, ops)}
-            if name == "roi_constg":
-                g = rp.constg_value(boxes, feats.dtype)[:, :, None, None].expand(
-                    a.batch, a.rois, 14 * 14, a.hw * a.hw)
-                g = g.reshape(a.batch, a.rois * 14 * 14, a.hw * a.hw).contiguous()
-                f2 = feats.reshape(a.batch, a.hw * a.hw, a.channels)
-                entry["library_ms"] = cuda_median_ms(lambda: torch.matmul(g, f2))
-                del g
+            out, entry = roi_within_plain(f"{name} {dtype}", kernel, plain, feats, boxes, t)
+            entry.update(ms=cuda_median_ms(lambda: kernel(feats, boxes)),
+                         plain_ms=cuda_median_ms(lambda: plain(feats, boxes), iters=3),
+                         library_ms=None, **bound((feats, boxes), out, ops))
+            del out
+            if name != "roi_sep_fused":
+                g = rc.materialized_g(boxes, a.hw, a.hw, feats.dtype, name == "roi_constg")
+                fd = f2.to(feats.dtype)
+                entry["library_ms"] = cuda_median_ms(lambda: torch.matmul(g, fd))
+                del g, fd
             report[name][dtype] = entry
-            log(f"{name} {dtype}: {tuple(out.shape)} max|err| {max_err:.3e} (worst err/bound "
-                f"{worst:.3f}) kernel {entry['ms']:.4f} ms plain {entry['plain_ms']:.4f} ms "
-                f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}) library "
+            log(f"{name} {dtype}: {tuple(entry['shape'])} max|err| {entry['max_abs_err']:.3e} "
+                f"(worst err/bound {entry['worst_err_over_bound']:.3f}) kernel "
+                f"{entry['ms']:.4f} ms plain {entry['plain_ms']:.4f} ms bound "
+                f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}, "
+                f"{100 * entry['bound_ms'] / entry['ms']:.1f}% reached) library "
                 f"{entry['library_ms']}")
-            del out, ref
         del feats
         torch.cuda.empty_cache()
+    for case, b, r, h, w, c in ROI_EDGE_CASES:
+        e32, eboxes = roi_edge_inputs(b, r, h, w, c, dev)
+        eterms = rc.sum_terms(e32, eboxes)
+        econst = rp.roi_constg_plain(e32.abs(), eboxes).abs()
+        for dtype in ("f32", "bf16"):
+            feats = e32.to(rc.DTYPES[dtype])
+            for name, kernel, plain, t in (
+                    ("roi_selector", rp.roi_selector, rp.roi_selector_plain, eterms),
+                    ("roi_constg", rp.roi_constg, rp.roi_constg_plain, econst)):
+                _, entry = roi_within_plain(f"{name} {dtype} {case}", kernel, plain, feats,
+                                            eboxes, t)
+                report[name][f"{case}_{dtype}"] = entry
+                log(f"{name} {dtype} {case}: {b} x {r} RoIs on {h}x{w}x{c}: max|err| "
+                    f"{entry['max_abs_err']:.3e} (worst err/bound "
+                    f"{entry['worst_err_over_bound']:.3f})")
+        del e32, eterms, econst
     return report
 
 
@@ -1760,8 +1810,8 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
     """One entry of the kernels line: the largest error over the checked
     geometries, and the times and bound at the geometry ``timed``. Only
     the probe and Kr (int32) have a library time (``torch._int_mm``, where
-    it accepts the shapes), and constg (``torch.matmul`` with its constant
-    G materialized): PyTorch has no int4 product for Kn and Ks4,
+    it accepts the shapes), and selector and constg (``torch.matmul`` with
+    their G materialized): PyTorch has no int4 product for Kn and Ks4,
     and no single PyTorch call computes the other kernels' functions
     (they scale segments of an int32 or bf16 product by per-row scales;
     for RoIAlign, ``F.grid_sample``'s zero padding splits the weight at the

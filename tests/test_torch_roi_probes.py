@@ -16,6 +16,11 @@ random boxes and boxes across the map's border, in f32 and bf16:
 * T-roi 3, ``roi_constg_plain`` (closed form: the constant times the
   map's sum), against the tool's ``roi_constg`` closure.
 
+The plain versions, which the card tests hold the GEMM kernels to, are
+also held at the kernels' tiling edges: one RoI and three on 9 x 11 and
+11 x 9 maps (the selector against ``roi_align_pallas`` in interpret mode
+and ``roi_align_xla``, constg against its dense G @ F in float64).
+
 Tolerance: ``1e-5 * T + 1e-6`` with T the summed |term| of each output
 (every weight is non-negative, so T is the function on |F|), plus one
 bf16 ulp of the reference (``roi_common.bf16_ulp``) for a bf16 output. The bf16 selector is held
@@ -168,6 +173,62 @@ def test_constg_matches_jax_and_closed_form(dtype, variant_closures):
     np.testing.assert_array_equal(out[:, :, 0, 0].numpy(), out[:, :, 13, 13].numpy())
 
 
+# the GEMM kernels' tiling edges at CPU size: (RoIs, H, W) with H != W; one
+# RoI is a single partial tile of stacked rows, three straddle RoIs
+RAGGED = [(1, 9, 11), (3, 11, 9), (3, 9, 11)]
+
+
+def _ragged_inputs(r, h, w, seed):
+    """One (h, w, C) map and r boxes, the first across the border."""
+    rng = np.random.RandomState(seed)
+    feats = rng.randn(1, h, w, C).astype(np.float32)
+    lo = rng.uniform(0, [w - 2, h - 2], (1, r, 2))
+    wh = rng.uniform(1, [w / 2, h / 2], (1, r, 2))
+    boxes = np.concatenate([lo, lo + wh], axis=-1).astype(np.float32)
+    boxes[0, 0] = [-1.5, -1.0, 3.0, h + 1.0]
+    return feats, boxes
+
+
+@pytest.mark.parametrize("geom", RAGGED)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_selector_plain_at_ragged_geometries(dtype, geom):
+    """roi_selector_plain, the card kernels' oracle, against roi_align_pallas
+    (interpret mode) and roi_align_xla on non-square maps at R = 1 and 3."""
+    r, h, w = geom
+    tdt, jdt = DT[dtype]
+    feats, boxes = _ragged_inputs(r, h, w, seed=5)
+    out = rp.roi_selector_plain(torch.from_numpy(feats).to(tdt), torch.from_numpy(boxes))
+    assert out.dtype == tdt and out.shape == (1, r, 14, 14, C)
+    terms = _terms(feats, boxes)[0]
+    rel = 2.0 ** -6 if dtype == "bf16" else 1e-5
+    bx = jnp.asarray(boxes[0])
+    pallas = roi_align_pallas(jnp.asarray(feats[0]).astype(jdt), bx, output_size=14,
+                              sampling_ratio=2)
+    _assert_within(out[0].float(), pallas.astype(jnp.float32), terms, rel=rel)
+    xla = roi_align_xla(jnp.asarray(feats[0]), bx, output_size=14, sampling_ratio=2)
+    _assert_within(out[0].float(), xla, terms, rel=rel)
+
+
+@pytest.mark.parametrize("geom", RAGGED)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_constg_plain_at_ragged_geometries(dtype, geom):
+    """roi_constg_plain (closed form) against the dense G @ F it stands for,
+    G materialized and the product taken in float64, on non-square maps at
+    R = 1 and 3."""
+    r, h, w = geom
+    tdt, _ = DT[dtype]
+    feats, boxes = _ragged_inputs(r, h, w, seed=6)
+    f = torch.from_numpy(feats).to(tdt)
+    out = rp.roi_constg_plain(f, torch.from_numpy(boxes))
+    assert out.dtype == torch.float32 and out.shape == (1, r, 14, 14, C)
+    g = rp.constg_value(torch.from_numpy(boxes), tdt).double()[0]  # (r,)
+    dense_g = g[:, None, None].expand(r, 14 * 14, h * w)
+    f2 = f.double().reshape(h * w, C)
+    ref = (dense_g @ f2).reshape(1, r, 14, 14, C)
+    terms = (dense_g.abs() @ f2.abs()).reshape(1, r, 14, 14, C)
+    _assert_within(out, ref.numpy(), terms)
+
+
 def test_dispatch_refuses_bad_operands():
     feats, boxes = _inputs(4)
     f, bx = torch.from_numpy(feats), torch.from_numpy(boxes)
@@ -193,7 +254,7 @@ def test_tools_run_on_cpu(dtype, capsys):
     for leg in ("constg", "selector", "xlasep", "xlasep2"):
         assert variants[f"{leg}_ms"] > 0 and variants[f"{leg}_bound"]["bound_ms"] > 0
     assert variants["grid_ms"] > 0 and variants["grid_bound"]["bound_ms"] > 0
-    assert variants["constg_library_ms"] > 0
+    assert variants["constg_library_ms"] > 0 and variants["selector_library_ms"] > 0
     assert all(v <= 1.0 for v in variants["worst_err_over_bound"].values())
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
     assert len(lines) == 2

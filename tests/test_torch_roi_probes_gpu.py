@@ -9,8 +9,9 @@ Imports only torch, numpy and tspn_tpu_torch:
   output; every weight is non-negative, so T is the function on |F|),
   plus one bf16 ulp of the plain value (``roi_common.bf16_ulp``) for a
   bf16 output, in f32 and bf16, at the tools' 40 x 40 maps with 1024
-  channels and at a small 8 x 8 x 128 map with boxes across the border;
-  each launches once.
+  channels, at a small 8 x 8 x 128 map with boxes across the border, and
+  at the edges of the GEMM's stacked-row tiling (R = 1, R = 3, a 29 x 33
+  map, C = 384, a 128 x 128 map); each launches once.
 * In f32, the fused and selector kernels agree with ``roi_align_plain``
   within the same bound.
 * The wrappers raise on operands the kernels do not take.
@@ -38,30 +39,46 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(b, r, hw, c, dev, seed=0):
+def _inputs(b, r, h, w, c, dev, seed=0):
+    """(b, h, w, c) f32 maps and (b, r, 4) boxes, the first three of
+    image 0 across the border (as many as r holds)."""
     rng = np.random.RandomState(seed)
-    feats = rng.randn(b, hw, hw, c).astype(np.float32)
-    bx = rng.uniform(0, hw - 2, (b, r, 2))
-    wh = rng.uniform(1, hw / 2, (b, r, 2))
-    boxes = np.concatenate([bx, bx + wh], axis=-1).astype(np.float32)
-    boxes[0, :3] = [[-1.5, -1.0, 3.0, hw + 1.0], [hw - 2.0, hw - 2.0, hw + 4.0, hw + 4.0],
-                    [-9.0, 2.0, -2.0, 5.0]]
+    feats = rng.randn(b, h, w, c).astype(np.float32)
+    lo = rng.uniform(0, [w - 2, h - 2], (b, r, 2))
+    wh = rng.uniform(1, [w / 2, h / 2], (b, r, 2))
+    boxes = np.concatenate([lo, lo + wh], axis=-1).astype(np.float32)
+    border = [[-1.5, -1.0, 3.0, h + 1.0], [w - 2.0, h - 2.0, w + 4.0, h + 4.0],
+              [-9.0, 2.0, -2.0, 5.0]]
+    boxes[0, :3] = border[:min(r, 3)]
     return torch.from_numpy(feats).to(dev), torch.from_numpy(boxes).to(dev)
 
 
+# (images, RoIs, H, W, C): the tools' 40 x 40 x 1024 with a ragged RoI count,
+# a small map, then the edges of the stacked-row tiling: one RoI (a single
+# partial 128-row tile), three (tiles straddling RoIs), a non-square map
+# whose 8 x 8 blocks overhang (H * W not a multiple of the K chunk), C = 384
+# (an odd count of 128-channel tiles) and the largest map taken
+SHAPES = [(2, 37, 40, 40, 1024), (2, 8, 8, 8, 128), (1, 1, 40, 40, 1024), (2, 3, 16, 16, 256),
+          (2, 5, 29, 33, 256), (2, 4, 16, 16, 384), (1, 4, 128, 128, 256)]
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 37, 40, 1024), (2, 8, 8, 128)])
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("name", sorted(KERNELS))
 def test_kernel_within_bound_of_plain(cuda_device, name, shape, dtype):
     feats32, boxes = _inputs(*shape, cuda_device)
     feats = feats32.to(roi_common.DTYPES[dtype])
     kernel, plain = KERNELS[name]
+    if name == "roi_sep_fused" and shape[3] > 112:  # its (14, W, 32) intermediate
+        with pytest.raises(ValueError):
+            kernel(feats, boxes)
+        return
     before = rp.LAUNCHES[name]
     out = kernel(feats, boxes)
     ref = plain(feats, boxes)
     torch.cuda.synchronize()
     assert rp.LAUNCHES[name] == before + 1
-    assert out.dtype == ref.dtype and out.shape == ref.shape == (*shape[:2], 14, 14, shape[3])
+    assert out.dtype == ref.dtype and out.shape == ref.shape == (*shape[:2], 14, 14, shape[4])
     if name == "roi_constg":
         terms = rp.roi_constg_plain(feats32.abs(), boxes).abs()
     else:
@@ -74,7 +91,7 @@ def test_kernel_within_bound_of_plain(cuda_device, name, shape, dtype):
 
 
 def test_wrappers_reject_bad_operands(cuda_device):
-    feats, boxes = _inputs(1, 8, 8, 128, cuda_device)
+    feats, boxes = _inputs(1, 8, 8, 8, 128, cuda_device)
     with pytest.raises(TypeError):
         rp.roi_selector(feats.half(), boxes)
     with pytest.raises(ValueError):

@@ -6,7 +6,8 @@
 //  * tools/bench_roialign_fused.py::_make_roi_align_sep_fused (body
 //    _kernel_sep_fused): roi_sep_fused_kernel below;
 //  * tools/bench_roialign_variants.py::main.<locals>.roi_selector (body
-//    _kernel_sel): roi_gemm_f32_kernel / roi_gemm_bf16_kernel, kConst false;
+//    _kernel_sel): roi_gemm_f32_kernel (f32 maps) / roi_gemm_bf16_kernel
+//    (bf16 maps), kConst false;
 //  * tools/bench_roialign_variants.py::main.<locals>.roi_constg (body
 //    _kernel_const): the same kernels, kConst true.
 //
@@ -36,32 +37,58 @@
 // directly. Both stages run on the CUDA cores in f32 (the products of
 // bf16 values are exact in f32).
 //
-// roi_gemm kernels (T-roi 2, 3): per RoI, out[(i,j), c] = sum_{(y,x)}
-// G[(i,j),(y,x)] F[(y,x), c] with G = bf((ty[i][y] * tx[j][x]) / s^2)
-// (selector: the TPU kernel's _kernel_sel without its one-hot selector
-// matmuls, which only expanded the same tables) or G = bf(x0 * 1e-6)
-// everywhere (constg: the lower bound of the G form, not RoIAlign). Tiles
-// of 64 rows (of out^2 = 196) x 128 channels; G's tile for each K chunk is
-// formed in shared memory from the tables as it is needed, never stored.
-// f32 maps: a SIMT GEMM (16 x 16 threads of 4 x 8 outputs, K chunks of
-// 16, true f32 FMAs, no TF32), the next chunk held in registers while the
-// current one multiplies. bf16 maps: mma.sync.m16n8k16 bf16 -> f32, 8 warps
-// of 16 x 64 outputs, K chunks of 32 in two shared buffers, F's chunk
-// copied row-major by cp.async and read with ldmatrix .trans as the .col B
-// operand. The selector writes the map's dtype, constg f32 (as the TPU
-// probes do).
+// roi_gemm (T-roi 2, 3): out[(i,j), c] = sum_{(y,x)} G[(i,j),(y,x)] F[(y,x), c]
+// with G = bf((ty[i][y] * tx[j][x]) * (1/s^2)) (selector: the TPU kernel's
+// _kernel_sel without its one-hot selector matmuls, which only expanded the
+// same tables) or G = bf(x0 * 1e-6) everywhere (constg: the lower bound of
+// the G form, not RoIAlign). The selector writes the map's dtype, constg
+// f32 (as the TPU probes do). Each image's RoIs make one GEMM of M = R * 196
+// stacked rows (row m: RoI m / 196, bin i = (m % 196) / 14, j = m % 14), K =
+// H * W and N = C. A tile of 128 rows touches at most two RoIs, whose axis
+// tables the block builds in shared memory; G is formed from them as it is
+// needed and never stored in device memory.
 //
-// What bounds them on the card (tools' defaults: 4 x 256 RoIs, 40 x 40 x
-// 1024): the fused form does 63.5 GFLOP (47.6 in stage 1, 15.9 in stage 2)
-// against 411 MB (bf16) or 822 MB (f32) of output: in f32 it is bound by
-// the CUDA cores (0.95 ms); in bf16 stage 1's bf16 products would allow
-// the tensor cores, but this first version runs both stages on the CUDA
-// cores. The G form does 0.658 TFLOP: 9.8 ms on the CUDA cores in f32,
-// 0.67 ms on the bf16 tensor cores; forming G costs instructions of its
-// own (a few per element, each element feeding 128 channels). wgmma with
-// TMA is later work.
+// What bounds them (the tools' defaults, 4 x 256 RoIs on 40 x 40 x 1024):
+// 0.658 TFLOP against 13 (bf16) or 26 MB (f32) of map and 411 MB (bf16) or
+// 822 MB (f32) of output, so the bf16 tensor cores bound bf16 maps (0.665
+// ms at 989 TFLOP/s) and the f32 CUDA cores bound f32 maps (9.82 ms at 67
+// TFLOP/s, no TF32). The first design (one padded GEMM per RoI, mma.sync)
+// reached 18% and 11% of the bf16 bound; what held it back, and what this
+// one does instead:
+//  1. 64-row tiles per RoI: 196 rows padded to 256, 23% of the work on
+//     zeros. Now the stacked rows, padded only in an image's last tile.
+//  2. F read again for every 64 x 128 tile, 13.4 GB from L2 in bf16 and
+//     26.8 in f32. Now 128 x 256 tiles in bf16 (about 5.1 GB) and 128 x 128
+//     in f32 (about 10.3 GB).
+//  3. A two-buffer cp.async ring drained at every K chunk, and mma.sync.
+//     bf16 now runs wgmma.m64n256k16 in two consumer warpgroups, fed by a
+//     4-stage TMA ring (mbarriers, one producer thread, setmaxnreg moving
+//     registers to the consumers); one persistent block per SM walks the
+//     tiles, so the producer streams the next tile while a tile's stores
+//     drain. A warpgroup waits for its own products before it writes A
+//     again (see the consumer loop); the other warpgroup's products fill
+//     the gap. f32 keeps a 3-stage cp.async ring, one barrier per chunk.
+//  4. G through shared memory twice, element by element, with branches. In
+//     bf16 each consumer thread forms its A fragments in registers: a stage
+//     holds an 8 x 8 (y, x) block of the map, so a k16 step's 8 values of
+//     a thread are 2 ty values times 2 tx values of its 2 rows, read from
+//     the tables once per 64 k (6 shared loads, no division). In f32, G's
+//     128 x 16 tile (a 2 x 8 block) is formed once per chunk into shared
+//     memory and read back as float4 broadcasts.
+//  5. One-element stores. The bf16 selector's lanes swap values within a
+//     quad and store 16 bytes each; f32 outputs go out as float2 (bf16
+//     maps' constg) or float4 (f32 maps). Staging the output in shared
+//     memory for TMA stores was slower in a design probe: it costs the
+//     ring a stage and the consumers registers.
+//  6. A 4 x 8 register tile in f32 (0.375 shared loads a FMA). Now 8 x 8
+//     (0.25).
+// Ragged edges: TMA fills zeros past H, W (an 8 x 8 block of a 29 x 33 map
+// overhangs; f32's 2 x 8 blocks likewise, by cp.async) and no box is loaded
+// past C (C = 128 * odd: the last tile's upper half is never stored); rows
+// past R * 196 are not stored.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -226,142 +253,198 @@ roi_sep_fused_kernel(const T* __restrict__ feat, const float* __restrict__ boxes
 }
 
 // ------------------------------------------- T-roi 2, 3: the G @ F GEMM
-constexpr int kM = 64;    // rows (i, j) per block
-constexpr int kN = 128;   // channels per block
-constexpr int kRows = kOut * kOut;
+constexpr int kRows = kOut * kOut;  // output rows (i, j) of one RoI
+constexpr int kTileM = 128;         // stacked rows per tile: at most two RoIs
+// table strides: a warp's rows (8 bins j of one or two bin rows i) read ty
+// rows as broadcasts and tx rows 8 words apart, few bank conflicts
+constexpr int kTyStride = kMaxAxis + 4, kTxStride = kMaxAxis + 8;
 
-// A thread's share of G: four rows m_first + 16 r (r < 4), fixed for the
-// whole K walk, and a cursor (k, y, x), k = y * W + x, over the columns it
-// forms, moved a K chunk at a time. G[m][k] = bf((ty[m / 14][y] *
-// tx[m % 14][x]) / s^2), or the constant; 0 for m >= 196 or k >= H * W.
-template <typename T, bool kConst>
-struct GRows {
-  const float* ty_row[4];
-  const float* tx_row[4];
-  bool live[4];
-  int k, y, x, hw, W;
-  float inv_s2, cval;
+// The two RoIs a tile of stacked rows can touch (slot 0: the RoI of its
+// first row, slot 1: the next one, clamped to R - 1): their pooled axis
+// tables (1/s^2 not folded in) and their constg constants.
+struct Slots {
+  float ty[2][kOut][kTyStride];      // [slot][i][y]
+  float tx[2][kOut][kTxStride];      // [slot][j][x]
+  Tap taps[2][2][kOut * kMaxRatio];  // [slot][axis][i * s + a]
+  float cval[2];                     // bf(x0 * 1e-6), widened
+};
 
-  __device__ GRows(const float* ty, const float* tx, int m_first, int k_first, int hw_,
-                   int W_, float inv_s2_, float cval_)
-      : k(k_first), y(k_first / W_), x(k_first % W_), hw(hw_), W(W_), inv_s2(inv_s2_),
-        cval(cval_) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int m = m_first + 16 * r;
-      live[r] = m < kRows;
-      ty_row[r] = ty + (live[r] ? m / kOut : 0) * kMaxAxis;
-      tx_row[r] = tx + (live[r] ? m % kOut : 0) * kMaxAxis;
+// Fill `sl` for RoIs r0 and r0 + 1 of image b with axis_table's arithmetic:
+// each (bin, sample) tap once, then each entry sums its bin's taps in
+// sample order. Entries y < fill_h and x < fill_w are written (0 past H or
+// W). `n` threads run it and meet at `sync()`, which also ends it.
+template <typename T, bool kConst, typename Sync>
+__device__ void fill_slots(Slots& sl, const float* boxes, int b, int r0, int R, int H, int W,
+                           int s, int fill_h, int fill_w, int tid, int n, Sync sync) {
+  if (kConst) {
+    if (tid < 2) {
+      const float* bx = boxes + 4 * ((size_t)b * R + min(r0 + tid, R - 1));
+      sl.cval[tid] = Io<T>::round(__fmul_rn(bx[0], 1e-6f));
     }
+    sync();
+    return;
   }
-  // G at row r and the column `ahead` (0 or 1) past the cursor
-  __device__ __forceinline__ float at(int r, int ahead) const {
-    const int kk = k + ahead;
-    if (!live[r] || kk >= hw) return 0.f;
-    if (kConst) return cval;
-    const bool wrap = x + ahead >= W;
-    const int yy = wrap ? y + 1 : y, xx = wrap ? x + ahead - W : x + ahead;
-    return Io<T>::round(__fmul_rn(__fmul_rn(ty_row[r][yy], tx_row[r][xx]), inv_s2));
+  const int per_axis = kOut * s;
+  for (int e = tid; e < 4 * per_axis; e += n) {
+    const int slot = e / (2 * per_axis), axis = e / per_axis % 2, k = e % per_axis;
+    const Box bx = read_box(boxes + 4 * ((size_t)b * R + min(r0 + slot, R - 1)));
+    sl.taps[slot][axis][k] = axis == 0 ? bilinear_1d(sample_coord(bx.y0, bx.bh, k, s), H)
+                                       : bilinear_1d(sample_coord(bx.x0, bx.bw, k, s), W);
   }
-  __device__ __forceinline__ void advance(int step) {
-    k += step;
-    x += step;
-    while (x >= W) {
-      x -= W;
-      ++y;
-    }
+  sync();
+  const int ny = 2 * kOut * fill_h;
+  for (int e = tid; e < ny + 2 * kOut * fill_w; e += n) {
+    const bool is_y = e < ny;
+    const int f = is_y ? e : e - ny, fill = is_y ? fill_h : fill_w;
+    const int slot = f / (kOut * fill), i = f / fill % kOut, y = f % fill;
+    const Tap* tp = sl.taps[slot][is_y ? 0 : 1] + i * s;
+    float acc = 0.f;
+    if (y < (is_y ? H : W))
+      for (int a = 0; a < s; ++a) {
+        const Tap t = tp[a];
+        acc = __fadd_rn(acc, __fadd_rn(y == t.i0 ? t.w0 : 0.f, y == t.i1 ? t.w1 : 0.f));
+      }
+    if (is_y)
+      sl.ty[slot][i][y] = acc;
+    else
+      sl.tx[slot][i][y] = acc;
+  }
+  sync();
+}
+
+// Row m of a tile starting at stacked row m0 (first RoI r0): its offsets
+// into the flattened ty and tx tables of `Slots`, and its slot.
+struct RowAt {
+  int ty, tx, slot;
+  __device__ RowAt(int m, int r0) {
+    const int roi = m / kRows, rem = m - roi * kRows;
+    slot = min(roi - r0, 1);
+    ty = (slot * kOut + rem / kOut) * kTyStride;
+    tx = (slot * kOut + rem % kOut) * kTxStride;
   }
 };
 
-// f32 maps: SIMT, thread (ty_, tx_) of 16 x 16 owns rows 4 ty_ .. +3 and
-// channels 4 tx_ .. +3 and 64 + 4 tx_ .. +3. Two shared buffers: while the
-// block multiplies chunk c, each thread holds chunk c + 1's G values and F
-// vectors in registers, and stores them once chunk c is done.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(full ? 16 : 0));
+}
+
+// ---- f32 maps: SIMT, true f32 FMAs
+constexpr int kF32Threads = 256;
+constexpr int kF32K = 16;       // K per chunk
+constexpr int kF32Stages = 3;   // cp.async ring of F chunks
+
+struct F32Shared {
+  float fs[kF32Stages][kF32K][kTileM];  // F chunk, [k][channel]
+  float gs[2][kF32K][kTileM];           // G chunk, [k][row]
+  Slots sl;
+};
+
+// One block per (128 channels, 128 stacked rows, image). Thread (ty_, tx_)
+// of 16 x 16 owns rows {0, 64} + 4 ty_ .. +3 and channels {0, 64} + 4 tx_
+// .. +3 (8 x 8 outputs). A K chunk is a 2 x 8 (y, x) block of the map (as
+// bf16's stages, so G's columns need no division). Each chunk: F's 16 x
+// 128 slab arrives by cp.async S - 1 chunks ahead (zeros past H, W); G's
+// 128 x 16 tile for the next chunk is formed into the other G buffer
+// (thread: row tid % 128, columns tid / 128 + 2 q, from 2 ty and 4 tx
+// values), then each thread reads 2 float4 of G and 2 of F per k for 64
+// FMAs.
 template <bool kConst>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kF32Threads, 2)
 roi_gemm_f32_kernel(const float* __restrict__ feat, const float* __restrict__ boxes,
                     float* __restrict__ out, int R, int H, int W, int C, int s) {
-  constexpr int kK = 16;
-  constexpr int kGPer = kK * kM / kThreads;       // G values a thread forms: 4
-  constexpr int kFPer = kK * kN / 4 / kThreads;   // F vectors a thread loads: 2
-  __shared__ float tyx[2 * kOut * kMaxAxis];
-  __shared__ __align__(16) float gs[2][kK][kM + 4];  // padded: 2-way stores
-  __shared__ __align__(16) float fs[2][kK][kN];
-  const int roi = blockIdx.z, b = roi / R;
-  const int m0 = blockIdx.y * kM, n0 = blockIdx.x * kN;
-  const int hw = H * W;
-  const Box bx = read_box(boxes + 4 * (size_t)roi);
-  float* ty = tyx;
-  float* tx = tyx + kOut * kMaxAxis;
-  if (!kConst) {
-    axis_table(ty, kMaxAxis, bx.y0, bx.bh, H, s);
-    axis_table(tx, kMaxAxis, bx.x0, bx.bw, W, s);
-  }
+  extern __shared__ __align__(16) uint8_t smem_f32[];
+  F32Shared& sm = *reinterpret_cast<F32Shared*>(smem_f32);
+  const int tid = threadIdx.x, b = blockIdx.z;
+  const int M = R * kRows, m0 = blockIdx.y * kTileM, n0 = blockIdx.x * kTileM;
+  const int r0 = m0 / kRows;
+  // a chunk is a (2 y) x (8 x) block of the map, k_local = 8 yl + xl
+  const int x_blocks = (W + 7) / 8, chunks = (H + 1) / 2 * x_blocks;
+  fill_slots<float, kConst>(sm.sl, boxes, b, r0, R, H, W, s, (H + 1) / 2 * 2, x_blocks * 8, tid,
+                            kF32Threads, [] { __syncthreads(); });
   const float inv_s2 = __fdiv_rn(1.f, (float)(s * s));
-  const float cval = __fmul_rn(bx.raw_x0, 1e-6f);
-  const float* img = feat + (size_t)b * hw * C + n0;
-  const int tid = threadIdx.x, ty_ = tid / 16, tx_ = tid % 16;
-  // this thread forms G[m][kk] for kk = tid % kK and m = tid / kK + 16 r
-  const int gk = tid % kK, gm = tid / kK;
-  GRows<float, kConst> grows(ty, tx, m0 + gm, gk, hw, W, inv_s2, cval);
-  float gv[kGPer];
-  float4 fv[kFPer];
-  auto fetch = [&](int k0) {
+  // this thread's row of G, and its columns g_col + 2 q of each chunk
+  const int g_row = tid % kTileM, g_col = tid / kTileM;
+  const RowAt ra(m0 + g_row, r0);
+  const float* ty = &sm.sl.ty[0][0][0] + ra.ty;
+  const float* tx = &sm.sl.tx[0][0][0] + ra.tx;
+  const float cval = sm.sl.cval[kConst ? ra.slot : 0];
+  const float* img = feat + (size_t)b * H * W * C + n0;
+
+  auto load_f = [&](int c) {
+    if (c < chunks) {
+      const int cy = c / x_blocks * 2, cx = c % x_blocks * 8;
 #pragma unroll
-    for (int r = 0; r < kGPer; ++r) gv[r] = grows.at(r, 0);
-    grows.advance(kK);
-#pragma unroll
-    for (int i = 0; i < kFPer; ++i) {
-      const int e = tid + i * kThreads, kk = e / (kN / 4), n4 = e % (kN / 4);
-      fv[i] = k0 + kk < hw
-                  ? __ldg(reinterpret_cast<const float4*>(img + (size_t)(k0 + kk) * C) + n4)
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int i = 0; i < kF32K * kTileM / 4 / kF32Threads; ++i) {
+        const int e = tid + i * kF32Threads, kk = e / (kTileM / 4), n4 = e % (kTileM / 4);
+        const int y = cy + kk / 8, x = cx + kk % 8;
+        const bool in = y < H && x < W;
+        cp_async16(&sm.fs[c % kF32Stages][kk][n4 * 4], img + (size_t)(in ? y * W + x : 0) * C + n4 * 4,
+                   in);
+      }
     }
+    asm volatile("cp.async.commit_group;\n" ::);  // empty past the end: the count stays true
   };
-  auto stash = [&](int buf) {
+  // G past H or W multiplies the zeros copied there, so any finite value does
+  // (all loads first: the stores to gs could alias them as far as the
+  // compiler knows, and would serialize them)
+  auto form_g = [&](int c) {
+    float v[kF32K / 2];
+    if (kConst) {
 #pragma unroll
-    for (int r = 0; r < kGPer; ++r) gs[buf][gk][gm + 16 * r] = gv[r];
+      for (int q = 0; q < kF32K / 2; ++q) v[q] = cval;
+    } else {
+      const int cy = c / x_blocks * 2, cx = c % x_blocks * 8;
+      const float y0 = ty[cy], y1 = ty[cy + 1];
+      float xs[4];  // columns g_col + 2 q and g_col + 2 q + 8 share x
 #pragma unroll
-    for (int i = 0; i < kFPer; ++i) {
-      const int e = tid + i * kThreads;
-      *reinterpret_cast<float4*>(&fs[buf][e / (kN / 4)][(e % (kN / 4)) * 4]) = fv[i];
+      for (int q = 0; q < 4; ++q) xs[q] = tx[cx + g_col + 2 * q];
+#pragma unroll
+      for (int q = 0; q < kF32K / 2; ++q)
+        v[q] = __fmul_rn(__fmul_rn(q < 4 ? y0 : y1, xs[q % 4]), inv_s2);
     }
+#pragma unroll
+    for (int q = 0; q < kF32K / 2; ++q) sm.gs[c & 1][g_col + 2 * q][g_row] = v[q];
   };
 
-  float acc[4][8];
+  float acc[8][8];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < 8; ++a)
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc[a][e] = 0.f;
-
-  __syncthreads();  // the tables
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  const int chunks = (hw + kK - 1) / kK;
+  const int ty_ = tid / 16, tx_ = tid % 16;
+  for (int c = 0; c < kF32Stages - 1; ++c) load_f(c);
+  form_g(0);
   for (int c = 0; c < chunks; ++c) {
-    const int buf = c & 1;
-    if (c + 1 < chunks) fetch((c + 1) * kK);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kF32Stages - 2));
+    __syncthreads();  // chunk c's F and G in place; every thread is past chunk c - 1
+    load_f(c + kF32Stages - 1);
+    if (c + 1 < chunks) form_g(c + 1);
+    const float(*fs)[kTileM] = sm.fs[c % kF32Stages];
+    const float(*gs)[kTileM] = sm.gs[c & 1];
 #pragma unroll
-    for (int kk = 0; kk < kK; ++kk) {
-      const float4 g = *reinterpret_cast<const float4*>(&gs[buf][kk][ty_ * 4]);
-      const float4 f0 = *reinterpret_cast<const float4*>(&fs[buf][kk][tx_ * 4]);
-      const float4 f1 = *reinterpret_cast<const float4*>(&fs[buf][kk][64 + tx_ * 4]);
-      const float ga[4] = {g.x, g.y, g.z, g.w};
+    for (int kk = 0; kk < kF32K; ++kk) {
+      const float4 g0 = *reinterpret_cast<const float4*>(&gs[kk][ty_ * 4]);
+      const float4 g1 = *reinterpret_cast<const float4*>(&gs[kk][64 + ty_ * 4]);
+      const float4 f0 = *reinterpret_cast<const float4*>(&fs[kk][tx_ * 4]);
+      const float4 f1 = *reinterpret_cast<const float4*>(&fs[kk][64 + tx_ * 4]);
+      const float ga[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
       const float fa[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < 8; ++a)
 #pragma unroll
         for (int e = 0; e < 8; ++e) acc[a][e] = fmaf(ga[a], fa[e], acc[a][e]);
     }
-    if (c + 1 < chunks) stash(buf ^ 1);  // the other buffer: free since chunk c - 1
-    __syncthreads();
   }
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int m = m0 + ty_ * 4 + a;
-    if (m >= kRows) continue;
-    float* dst = out + ((size_t)roi * kRows + m) * C + n0;
+  for (int a = 0; a < 8; ++a) {
+    const int m = m0 + (a / 4) * 64 + ty_ * 4 + a % 4;
+    if (m >= M) continue;
+    float* dst = out + ((size_t)b * M + m) * C + n0;
     *reinterpret_cast<float4*>(dst + tx_ * 4) =
         make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
     *reinterpret_cast<float4*>(dst + 64 + tx_ * 4) =
@@ -369,137 +452,402 @@ roi_gemm_f32_kernel(const float* __restrict__ feat, const float* __restrict__ bo
   }
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// ---- bf16 maps: wgmma fed by TMA, A formed in registers
+constexpr int kBN = 256;                          // channels per tile
+constexpr int kBK = 64;                           // K per stage: an 8 x 8 (y, x) block
+constexpr int kStages = 4;
+constexpr int kBoxBytes = kBK * 64 * 2;           // one TMA box: 64 k x 64 channels
+constexpr int kStageBytes = kBoxBytes * (kBN / 64);
+constexpr int kBf16Threads = 384;                 // 2 consumer warpgroups + 1 producer
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+struct Bf16Shared {
+  Slots sl;
+  uint64_t full[kStages], empty[kStages];
+};
+constexpr int kBf16Smem = kStages * kStageBytes + (int)sizeof(Bf16Shared) + 1024;
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+// wait for the phase of `bar` with this parity to complete; a wait of
+// more than 2^35 cycles (about 19 s) traps rather than hang the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  long long start = 0;
+  for (bool first = true;; first = false) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (first)
+      start = clock64();
+    else if (clock64() - start > (1ll << 35))
+      __trap();
+  }
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// the box of (channel c, x, y, image b) of the (C, W, H, B) map into dst
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c,
+                                         int x, int y, int b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(x), "r"(y), "r"(b), "r"(smem_addr(bar))
+      : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+// B descriptor of a stage: F's slab, channels contiguous (MN-major), 128-byte
+// swizzle; the 8-row k groups 1024 bytes apart (SBO), the 64-channel boxes
+// kBoxBytes apart (LBO).
+__device__ __forceinline__ uint64_t stage_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(kBoxBytes >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
-               "r"(full ? 16 : 0));
+// D (64 x 256, f32) += A (64 x 16 bf16, registers) * B (16 x 256 bf16,
+// shared memory, MN-major); D is zeroed first when scale_d is 0.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[128], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]),
+        "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-// bf16 maps: warp w owns rows 16 (w % 4) .. +15 and channels 64 (w / 4) ..
-// +63 (eight n8 tiles); OutT is bf16 (selector) or float (constg). F's
-// chunks arrive row-major ([k][channel]) by cp.async into two buffers, and
-// ldmatrix .trans hands each warp its .col B fragments; G's chunk for the
-// next K step is formed while the current one multiplies.
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// every wgmma this warpgroup committed has completed
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// the accumulators are not read or written across this point
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// bf16 pair (lo, hi) of G = bf((ty * tx) / s^2), lo in the low half
+__device__ __forceinline__ uint32_t g_pair(float y, float2 x, float inv_s2) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(__fmul_rn(__fmul_rn(y, x.x), inv_s2),
+                                                 __fmul_rn(__fmul_rn(y, x.y), inv_s2));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// lane t of a quad holds row t of a 4 x 4 block of words; afterwards it
+// holds column t (two butterfly stages of shuffles)
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
+  const bool hi = t & 2, odd = t & 1;
+  uint32_t s0 = hi ? v[0] : v[2], s1 = hi ? v[1] : v[3];
+  s0 = __shfl_xor_sync(0xffffffffu, s0, 2);
+  s1 = __shfl_xor_sync(0xffffffffu, s1, 2);
+  if (hi) {
+    v[0] = s0;
+    v[1] = s1;
+  } else {
+    v[2] = s0;
+    v[3] = s1;
+  }
+  uint32_t u0 = odd ? v[0] : v[1], u1 = odd ? v[2] : v[3];
+  u0 = __shfl_xor_sync(0xffffffffu, u0, 1);
+  u1 = __shfl_xor_sync(0xffffffffu, u1, 1);
+  if (odd) {
+    v[0] = u0;
+    v[2] = u1;
+  } else {
+    v[1] = u0;
+    v[3] = u1;
+  }
+}
+
+// Persistent: block i walks tiles [i T / grid, (i + 1) T / grid) of the T =
+// B x ceil(M / 128) x ceil(C / 256) tiles, channels fastest, so the axis
+// tables are built once per 128 stacked rows. Warpgroups 0 and 1 consume
+// (rows 64 w .. +63 of the tile, all 256 channels, 128 f32 accumulators a
+// thread); thread 256 produces: for each tile, for each 8 x 8 (y, x) block
+// of the map (y outer), it waits for a free stage and loads 64 k x 256
+// channels as four 64-channel TMA boxes (zero past W, H; none past C).
+// Stage row k_local = 8 yl + xl, so the k16 step j of a stage covers map
+// rows yl = 2j, 2j + 1 and x 0..7: a thread's A fragment of step j (rows g
+// and g + 8 of its warp, columns 2t, 2t + 1 and 2t + 8, 2t + 9) is its two
+// rows' ty at y = 2j, 2j + 1 times their tx at x = 2t, 2t + 1.
 template <bool kConst, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-roi_gemm_bf16_kernel(const uint16_t* __restrict__ feat, const float* __restrict__ boxes,
-                     OutT* __restrict__ out, int R, int H, int W, int C, int s) {
-  constexpr int kK = 32;
-  constexpr int kGStride = kK / 2 + 4;   // words per G row: 32 bf16 + 8 pad
-  constexpr int kFStride = kN + 8;       // bf16 per F row: 128 + 8 pad
-  __shared__ float tyx[2 * kOut * kMaxAxis];
-  __shared__ __align__(16) uint32_t gs[2][kM * kGStride];    // [m][k] bf16 pairs
-  __shared__ __align__(16) uint16_t fs[2][kK * kFStride];    // [k][channel]
-  const int roi = blockIdx.z, b = roi / R;
-  const int m0 = blockIdx.y * kM, n0 = blockIdx.x * kN;
-  const int hw = H * W;
-  const Box bx = read_box(boxes + 4 * (size_t)roi);
-  float* ty = tyx;
-  float* tx = tyx + kOut * kMaxAxis;
-  if (!kConst) {
-    axis_table(ty, kMaxAxis, bx.y0, bx.bh, H, s);
-    axis_table(tx, kMaxAxis, bx.x0, bx.bw, W, s);
+__global__ void __launch_bounds__(kBf16Threads, 1)
+roi_gemm_bf16_kernel(const __grid_constant__ CUtensorMap fmap, const float* __restrict__ boxes,
+                     OutT* __restrict__ out, int R, int H, int W, int C, int s, int tiles) {
+  extern __shared__ __align__(16) uint8_t smem_bf16[];
+  uint8_t* ring = smem_bf16 + ((1024 - (smem_addr(smem_bf16) & 1023)) & 1023);
+  Bf16Shared& sm = *reinterpret_cast<Bf16Shared*>(ring + kStages * kStageBytes);
+  const int M = R * kRows;
+  const int m_tiles = (M + kTileM - 1) / kTileM, n_tiles = (C + kBN - 1) / kBN;
+  const int t_begin = (int)((long long)blockIdx.x * tiles / gridDim.x);
+  const int t_end = (int)((long long)(blockIdx.x + 1) * tiles / gridDim.x);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&sm.full[i], 1);
+      mbar_init(&sm.empty[i], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // the producer warpgroup: one thread issues
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = t_begin; tile < t_end; ++tile) {
+        const int n0 = tile % n_tiles * kBN, b = tile / n_tiles / m_tiles;
+        const int boxes_n = min(kBN, C - n0) / 64;
+        for (int cy = 0; cy < H; cy += 8)
+          for (int cx = 0; cx < W; cx += 8) {
+            mbar_wait(&sm.empty[stage], phase ^ 1);
+            mbar_expect_tx(&sm.full[stage], boxes_n * kBoxBytes);
+            for (int i = 0; i < boxes_n; ++i)
+              tma_load(ring + stage * kStageBytes + i * kBoxBytes, &fmap, &sm.full[stage],
+                       n0 + 64 * i, cx, cy, b);
+            if (++stage == kStages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row = 64 * (warp / 4) + 16 * (warp % 4) + g;  // and row + 8
   const float inv_s2 = __fdiv_rn(1.f, (float)(s * s));
-  const float cval = __fmul_rn(bx.raw_x0, 1e-6f);
-  const uint16_t* img = feat + (size_t)b * hw * C + n0;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = (warp % 4) * 16, wn = (warp / 4) * 64;
-  // this thread forms the bf16 pair (k, k + 1) = k0 + 2 gw_col (+1) of rows
-  // m = gm + 16 r
-  const int gw_col = tid % (kK / 2), gm = tid / (kK / 2);
-  GRows<__nv_bfloat16, kConst> grows(ty, tx, m0 + gm, 2 * gw_col, hw, W, inv_s2, cval);
-
-  // chunk k0 into buffer buf: F by cp.async (two 16-byte pieces a thread),
-  // G formed here (four bf16 pairs a thread)
-  auto stage = [&](int buf, int k0) {
+  const float* tyf = &sm.sl.ty[0][0][0];
+  const float* txf = &sm.sl.tx[0][0][0];
+  const uint32_t ring_addr = smem_addr(ring);
+  float acc[128];
 #pragma unroll
-    for (int i = 0; i < kK * (kN / 8) / kThreads; ++i) {
-      const int e = tid + i * kThreads, kk = e / (kN / 8), n8 = e % (kN / 8);
-      const bool ok = k0 + kk < hw;
-      cp_async16(&fs[buf][kk * kFStride + n8 * 8], ok ? img + (size_t)(k0 + kk) * C + n8 * 8 : img,
-                 ok);
-    }
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  int tables_of = -1, ty_off[2] = {0, 0}, tx_off[2] = {0, 0};
+  uint32_t const_a[2] = {0, 0};
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int nt = tile % n_tiles, rest = tile / n_tiles;
+    const int b = rest / m_tiles, m0 = rest % m_tiles * kTileM, r0 = m0 / kRows;
+    if (rest != tables_of) {
+      tables_of = rest;
+      auto sync = [] { asm volatile("bar.sync 1, 256;\n" ::: "memory"); };
+      sync();  // every consumer is past the last tile's table reads
+      fill_slots<__nv_bfloat16, kConst>(sm.sl, boxes, b, r0, R, H, W, s, (H + 7) / 8 * 8,
+                                        (W + 7) / 8 * 8, threadIdx.x, 256, sync);
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-      gs[buf][(gm + 16 * r) * kGStride + gw_col] = pack_bf16(grows.at(r, 0), grows.at(r, 1));
-    grows.advance(kK);
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  __syncthreads();  // the tables
-  stage(0, 0);
-  const int chunks = (hw + kK - 1) / kK;
-  for (int c = 0; c < chunks; ++c) {
-    const int buf = c & 1;
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();  // chunk c staged by every thread; buffer buf ^ 1 free
-    if (c + 1 < chunks) stage(buf ^ 1, (c + 1) * kK);
-    const uint32_t* gw = gs[buf];
-    const unsigned fbase = static_cast<unsigned>(__cvta_generic_to_shared(fs[buf]));
-#pragma unroll
-    for (int ks = 0; ks < kK / 16; ++ks) {
-      const int kw = ks * 8 + t;
-      const uint32_t af[4] = {gw[(wm + g) * kGStride + kw], gw[(wm + g + 8) * kGStride + kw],
-                              gw[(wm + g) * kGStride + kw + 4],
-                              gw[(wm + g + 8) * kGStride + kw + 4]};
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        // lanes 0-15 address k rows 0-15 of n8 tile j, lanes 16-31 of tile j + 1
-        const int krow = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int col = wn + 8 * (j + (lane >> 4));
-        uint32_t bfr[4];
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-            : "=r"(bfr[0]), "=r"(bfr[1]), "=r"(bfr[2]), "=r"(bfr[3])
-            : "r"(fbase + (unsigned)(krow * kFStride + col) * 2u));
-        mma_bf16(acc[j], af, bfr[0], bfr[1]);
-        mma_bf16(acc[j + 1], af, bfr[2], bfr[3]);
+      for (int h = 0; h < 2; ++h) {
+        const RowAt ra(m0 + row + 8 * h, r0);
+        ty_off[h] = ra.ty;
+        tx_off[h] = ra.tx + 2 * t;
+        const float c = sm.sl.cval[kConst ? ra.slot : 0];
+        const __nv_bfloat162 v = __floats2bfloat162_rn(c, c);
+        const_a[h] = *reinterpret_cast<const uint32_t*>(&v);
       }
     }
-  }
-  // C fragment: acc[j][h*2 + e] is row wm + g + 8h, channel wn + 8j + 2t + e
+    // One chunk: form its A fragments (from the tables alone, before its
+    // stage arrives), issue its four k16 steps and wait for them, then free
+    // the stage. No product of this warpgroup is in flight while `a` is
+    // written: the compiler may place `a` in any registers, and a wgmma
+    // reads its A registers until it completes. The other warpgroup's
+    // products keep the tensor cores busy meanwhile.
+    int q = 0;
+    for (int cy = 0; cy < H; cy += 8)
+      for (int cx = 0; cx < W; cx += 8, ++q) {
+        uint32_t a[4][4];
+        if (kConst) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int m = m0 + wm + g + 8 * h;
-    if (m >= kRows) continue;
-    OutT* dst = out + ((size_t)roi * kRows + m) * C + n0 + wn;
+          for (int j = 0; j < 4; ++j) {
+            a[j][0] = a[j][2] = const_a[0];
+            a[j][1] = a[j][3] = const_a[1];
+          }
+        } else {
+          const float4 y0 = *reinterpret_cast<const float4*>(tyf + ty_off[0] + cy);
+          const float4 y1 = *reinterpret_cast<const float4*>(tyf + ty_off[0] + cy + 4);
+          const float4 y2 = *reinterpret_cast<const float4*>(tyf + ty_off[1] + cy);
+          const float4 y3 = *reinterpret_cast<const float4*>(tyf + ty_off[1] + cy + 4);
+          const float2 xa = *reinterpret_cast<const float2*>(txf + tx_off[0] + cx);
+          const float2 xb = *reinterpret_cast<const float2*>(txf + tx_off[1] + cx);
+          const float ya[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+          const float yb[8] = {y2.x, y2.y, y2.z, y2.w, y3.x, y3.y, y3.z, y3.w};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+          for (int j = 0; j < 4; ++j) {
+            a[j][0] = g_pair(ya[2 * j], xa, inv_s2);
+            a[j][1] = g_pair(yb[2 * j], xb, inv_s2);
+            a[j][2] = g_pair(ya[2 * j + 1], xa, inv_s2);
+            a[j][3] = g_pair(yb[2 * j + 1], xb, inv_s2);
+          }
+        }
+        mbar_wait(&sm.full[stage], phase);
+        wgmma_fence();
+        const uint64_t desc = stage_desc(ring_addr + stage * kStageBytes);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if constexpr (sizeof(OutT) == 2)
-          dst[j * 8 + 2 * t + e] = __float2bfloat16_rn(acc[j][h * 2 + e]);
-        else
-          dst[j * 8 + 2 * t + e] = acc[j][h * 2 + e];
+        for (int j = 0; j < 4; ++j)
+          wgmma_bf16(acc, a[j], desc + (uint64_t)((j * 16 * 128) >> 4), (q | j) != 0);
+        wgmma_commit();
+        wgmma_wait();
+        if (lane == 0) mbar_arrive(&sm.empty[stage]);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
+    fence_acc(acc);
+
+    // acc[4 j + 2 h + e]: row row + 8 h, channel 8 j + 2 t + e of the tile.
+    // bf16: the four lanes of a quad exchange values so that each stores 16
+    // contiguous bytes, a 4 x 4 transpose giving lane t the 8 channels of
+    // block 4 i + t (a quarter of the store instructions of bf16 pairs).
+    const int n0 = nt * kBN;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + row + 8 * h;
+      OutT* dst = out + ((size_t)b * M + m) * C + n0;
+      if constexpr (sizeof(OutT) == 2) {
+#pragma unroll
+        for (int i = 0; i < kBN / 32; ++i) {
+          uint32_t v[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const __nv_bfloat162 pr =
+                __floats2bfloat162_rn(acc[4 * (4 * i + k) + 2 * h], acc[4 * (4 * i + k) + 2 * h + 1]);
+            v[k] = *reinterpret_cast<const uint32_t*>(&pr);
+          }
+          quad_transpose(v, t);
+          const int j = 4 * i + t;
+          if (m < M && n0 + 8 * j < C)
+            *reinterpret_cast<uint4*>(dst + 8 * j) = make_uint4(v[0], v[1], v[2], v[3]);
+        }
+      } else {  // f32: a pair of channels a lane (a swap to 16 bytes measured no faster)
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j)
+          if (m < M && n0 + 8 * j < C)
+            *reinterpret_cast<float2*>(dst + 8 * j + 2 * t) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
   }
 }
 
 bool bad_shape(int B, int R, int H, int W, int C, int out_size, int s) {
   return B <= 0 || R <= 0 || H <= 0 || W <= 0 || C <= 0 || H > kMaxAxis ||
          W > kMaxAxis || out_size != kOut || s <= 0 || s > kMaxRatio;
+}
+
+template <bool kConst>
+int launch_gemm_f32(const float* feat, const float* boxes, float* out, int B, int R, int H, int W,
+                    int C, int s, cudaStream_t st) {
+  const int smem = (int)sizeof(F32Shared);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      roi_gemm_f32_kernel<kConst>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((unsigned)(C / kTileM), (unsigned)((R * kRows + kTileM - 1) / kTileM),
+                  (unsigned)B);
+  roi_gemm_f32_kernel<kConst><<<grid, kF32Threads, smem, st>>>(feat, boxes, out, R, H, W, C, s);
+  return (int)cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time so that the
+// library links against the runtime alone
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+template <bool kConst, typename OutT>
+int launch_gemm_bf16(const void* feat, const float* boxes, OutT* out, int B, int R, int H, int W,
+                     int C, int s, cudaStream_t st) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorNotSupported;
+  // the map as (C, W, H, B), channels innermost; boxes of 64 channels x 8 x 8
+  CUtensorMap fmap;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2, (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {64, 8, 8, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (encode(&fmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(feat), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = roi_gemm_bf16_kernel<kConst, OutT>;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return (int)e;
+  // setmaxnreg only moves registers the block already holds: with fewer,
+  // the consumers' increase would wait forever
+  if (fa.numRegs * kBf16Threads < 128 * kProducerRegs + 256 * kConsumerRegs)
+    return (int)cudaErrorInvalidConfiguration;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBf16Smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  const long long tiles = (long long)B * ((R * kRows + kTileM - 1) / kTileM) * ((C + kBN - 1) / kBN);
+  if (tiles > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  kernel<<<grid, kBf16Threads, kBf16Smem, st>>>(fmap, boxes, out, R, H, W, C, s, (int)tiles);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -542,25 +890,16 @@ extern "C" int tspn_roi_sep_fused_launch(const void* feat, const void* boxes, vo
 extern "C" int tspn_roi_gemm_launch(const void* feat, const void* boxes, void* out, int B,
                                     int R, int H, int W, int C, int out_size, int s, int bf16,
                                     int const_g, void* stream) {
-  if (bad_shape(B, R, H, W, C, out_size, s) || C % kN) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(C / kN), (unsigned)((kRows + kM - 1) / kM), (unsigned)(B * R));
+  if (bad_shape(B, R, H, W, C, out_size, s) || C % kTileM) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* bx = static_cast<const float*>(boxes);
   if (!bf16) {
     const float* f = static_cast<const float*>(feat);
     float* o = static_cast<float*>(out);
-    if (const_g)
-      roi_gemm_f32_kernel<true><<<grid, kThreads, 0, st>>>(f, bx, o, R, H, W, C, s);
-    else
-      roi_gemm_f32_kernel<false><<<grid, kThreads, 0, st>>>(f, bx, o, R, H, W, C, s);
-  } else {
-    const uint16_t* f = static_cast<const uint16_t*>(feat);
-    if (const_g)
-      roi_gemm_bf16_kernel<true, float><<<grid, kThreads, 0, st>>>(
-          f, bx, static_cast<float*>(out), R, H, W, C, s);
-    else
-      roi_gemm_bf16_kernel<false, __nv_bfloat16><<<grid, kThreads, 0, st>>>(
-          f, bx, static_cast<__nv_bfloat16*>(out), R, H, W, C, s);
+    return const_g ? launch_gemm_f32<true>(f, bx, o, B, R, H, W, C, s, st)
+                   : launch_gemm_f32<false>(f, bx, o, B, R, H, W, C, s, st);
   }
-  return (int)cudaGetLastError();
+  return const_g ? launch_gemm_bf16<true>(feat, bx, static_cast<float*>(out), B, R, H, W, C, s, st)
+                 : launch_gemm_bf16<false>(feat, bx, static_cast<__nv_bfloat16*>(out), B, R, H, W,
+                                           C, s, st);
 }

@@ -16,9 +16,14 @@ each over the whole batch (RoI r of image b pools image b):
             not RoIAlign. ``torch.matmul`` with the constant G materialized
             is timed beside it (a yardstick the port never calls).
   selector  T-roi 2 (``roi_selector``): G (196, H*W) formed from the per-axis
-            tables inside the kernel, G @ F with f32 sums (CUDA cores in f32,
-            ``mma.sync`` bf16 -> f32 in bf16). The TPU kernel's one-hot
-            selector matmuls only expanded the same tables and are dropped.
+            tables inside the kernel, G @ F with f32 sums over each image's
+            RoIs stacked into one GEMM (CUDA cores in f32; in bf16
+            ``wgmma`` bf16 -> f32 with F's slabs loaded by TMA and G formed
+            in registers). The TPU kernel's one-hot selector matmuls only
+            expanded the same tables and are dropped. ``torch.matmul`` of
+            the selector's G, materialized once per image in the map's
+            dtype, with F is timed beside it (``selector_library_ms``, a
+            yardstick the port never calls).
   xlasep    the two-einsum separable form, plain torch
   xlasep2   the transpose-free separable form, plain torch
 
@@ -102,13 +107,14 @@ def main(argv=None) -> dict:
         t = rc.time_leg(fn, dev, (feats, boxes), outs[k], ops[k])
         res[f"{k}_ms"], res[f"{k}_iqr_ms"] = t["ms"], t["iqr_ms"]
         res[f"{k}_bound"] = {x: t[x] for x in ("bound_ms", "bound_by", "bytes", "ops")}
-    # one PyTorch call of constg's function: the constant G, materialized
-    # once, times the maps (out in the map's dtype)
-    g = rp.constg_value(boxes, dt)[:, :, None, None].expand(b, r, 14 * 14, hw * hw)
-    g = g.reshape(b, r * 14 * 14, hw * hw).contiguous()
+    # one PyTorch call of each G form's function: its G, materialized once,
+    # times the maps (out in the map's dtype)
     f2 = feats.reshape(b, hw * hw, c)
-    res["constg_library_ms"] = rc.time_leg(lambda: torch.matmul(g, f2), dev, (g, f2),
-                                           outs["constg"], ops["constg"])["ms"]
+    for leg in ("constg", "selector"):
+        g = rc.materialized_g(boxes, hw, hw, dt, const=leg == "constg")
+        res[f"{leg}_library_ms"] = rc.time_leg(lambda: torch.matmul(g, f2), dev, (g, f2),
+                                               outs[leg], ops[leg])["ms"]
+        del g
     print(json.dumps(res), flush=True)
     return res
 

@@ -150,6 +150,18 @@ def sep_ops(b, r, h, w, c) -> tuple:
     return 2.0 * b * r * 14 * h * w * c, 2.0 * b * r * 14 * 14 * w * c
 
 
+def materialized_g(boxes, h: int, w: int, dtype, const: bool) -> torch.Tensor:
+    """(B, R * 196, H * W) G of ``roi_constg`` (``const``) or ``roi_selector``
+    in ``dtype``, for the one ``torch.matmul`` with the maps that computes
+    the same function: a yardstick, never called by the port."""
+    b, r = boxes.shape[:2]
+    if const:
+        g = rp.constg_value(boxes, dtype)[:, :, None, None].expand(b, r, 14 * 14, h * w)
+        return g.reshape(b, r * 14 * 14, h * w).contiguous()
+    return torch.stack([rp.selector_g(*rp.axis_tables(bx, h, w), dtype).reshape(r * 14 * 14, -1)
+                        for bx in boxes])
+
+
 def gemm_ops(b, r, h, w, c) -> float:
     """Operations of the dense G @ F form (out^2 rows, H*W columns)."""
     return 2.0 * b * r * 14 * 14 * h * w * c
