@@ -5,10 +5,10 @@
 Phases, in order; any failure raises and the exit code is nonzero:
 
 1. report the card (nvidia-smi name and power limit) and versions;
-2. build the kernels from their eight sources with nvcc, one build per
+2. build the kernels from their nine sources with nvcc, one build per
    source, all side by side (a fresh checkout always builds; a second run
    loads the builds), and report the q8s build (tspn_tpu_torch/csrc/q8s.cu,
-   which holds K1, K4, K6 and the probe);
+   which holds K1, K4 and K6);
 3. hold the q8s kernel against its plain PyTorch version at the three
    geometries of the serve path (tracklet, rel, expanded), with ragged
    row counts: the results must be equal bit for bit (torch.equal);
@@ -75,7 +75,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
     give the same detections apart from near-ties; one detect_tta batch
     and one roi_classeme call (one launch each); one profiled run for the
     busy share and K7's share of the device time;
-16. report the builds of csrc/q8s.cu and csrc/q8_bf16.cu (K5);
+16. report the builds of csrc/q8s.cu, csrc/q8_bf16.cu (K5) and
+    csrc/pair_probe.cu (the probe, wgmma);
 17. hold K4 (q8i8), K5 (q8bf), K6 (q8t) and the probe against their plain
     versions (run in chunks of 8192 rows) at the geometry of
     tools/bench_pair_kernels.py (96 x 992 = 95,232 rows, D 11,264), at a
@@ -83,9 +84,12 @@ Phases, in order; any failure raises and the exit code is nonzero:
     each with zero rows and empty BoW blocks: K4, K6 and the probe (all
     three modes) equal bit for bit, K4 equal to K1 and K6 to K1
     transposed on the same rows, K5 within |K5 - plain| <= 1e-5 *
-    (|q_h| @ |w_h| s + sum_k |q_k| @ |w_k| / L1_k + |b|) + 1e-6; time
-    kernel and plain, and torch._int_mm beside the probe where it takes
-    the shapes (its time is a yardstick; the port never calls it);
+    (|q_h| @ |w_h| s + sum_k |q_k| @ |w_k| / L1_k + |b|) + 1e-6; then the
+    probe alone, all three modes bit for bit, at 1 and 4,096 pairs of D
+    11,264 and at 4,096 and 333 pairs of D 64; time kernel and plain, and
+    torch._int_mm beside the probe where it takes the shapes (its time is
+    a yardstick; the port never calls it); each probe line prints its %
+    of the bound and its plan (how x was staged, the split of D);
 18. run the ported tool, python -m tspn_tpu_torch.tools.bench_pair_kernels,
     at its default 96 segments: K1, the probe in its three modes, K6, one
     launch per timed call of each leg;
@@ -130,7 +134,9 @@ Phases, in order; any failure raises and the exit code is nonzero:
     each line with its % of the bound; then hold selector and constg (in
     bf16 the wgmma + TMA kernel, in f32 the SIMT one) to plain within the
     same bounds at the edges of their stacked-row tiling: one RoI, three,
-    a 29 x 33 map, C = 384 and a 128 x 128 map;
+    a 29 x 33 map, C = 384 and a 128 x 128 map, and roi_sep_fused at the
+    same edges where it takes them (it refuses the 128 x 128 map: W >
+    112), at C = 96 and at W = 112;
 25. run the two ported RoIAlign tools, python -m
     tspn_tpu_torch.tools.bench_roialign_{fused,variants}, at their
     defaults in f32 and bf16 as one main-path group: each holds its
@@ -251,6 +257,10 @@ DET_TIE = 1e-5
 VARIANT_CASES = (("tool", 35, NUM_SEGMENTS * 992), ("ragged", 35, NUM_SEGMENTS * 992 - 77),
                  ("vidor", 80, 333))
 VARIANT_CHUNK = 8192  # rows per plain call: a float64 copy of 95k x 11264 is 8.6 GB
+# the probe alone: (name, pairs P, width D): one pair and 4,096 (D split
+# across blocks, x by TMA), and D 64 (one zero-padded chunk)
+PROBE_CASES = (("p1", 1, 11264), ("p4096", 4096, 11264), ("d64", 4096, 64),
+               ("vidor_d64", 333, 64))
 # Kr, Kn and Ks4 checks: (name, rows); the tool geometry is that of the
 # tools/bench_rel_*.py probes, D 3072 (rel_geom) and R 132
 REL_CASES = (("tool", NUM_SEGMENTS * 992), ("ragged", NUM_SEGMENTS * 992 - 77), ("vidor", 333))
@@ -264,6 +274,9 @@ ROI_TOOL = NS(batch=4, rois=256, hw=40, channels=1024)
 ROI_EDGE_CASES = (("r1", 1, 1, 40, 40, 1024), ("r3", 2, 3, 16, 16, 256),
                   ("29x33", 2, 5, 29, 33, 256), ("c384", 2, 4, 16, 16, 384),
                   ("128x128", 1, 4, 128, 128, 256))
+# roi_sep_fused only: C = 96 (32 x odd) with 13 RoIs (a part-empty 8-RoI
+# block), and W = 112, the widest it takes
+ROI_SEP_EDGE_CASES = (("c96", 2, 13, 24, 24, 96), ("w112", 1, 5, 40, 112, 256))
 REL_SCHEDULES = (("grid2", 2, "grid", 1, 16), ("grid3", 3, "grid", 1, 16),
                  ("grid4", 4, "grid", 1, 16), ("persistent2", 2, "persistent", 1, 16),
                  ("persistent4", 4, "persistent", 1, 16), ("ksplit2", 2, "grid", 2, 16),
@@ -1079,12 +1092,59 @@ def k5_worst_over_bound(t: dict, out, ref, lo) -> float:
     return worst
 
 
+def probe_entry(x, w, dev) -> dict:
+    """The probe on x (D, P), w (R, D): every mode equal to its plain version
+    (run in chunks of pairs) bit for bit; onedot timed beside its plain
+    version, its bound and torch._int_mm where that takes the shapes; the
+    kernel's plan."""
+    from tspn_tpu_torch.ops import pairwise as pw
+
+    d, p = x.shape
+    err = 0
+    for mode in pw.PROBE_MODES:
+        out = pw.pair_probe(x, w, mode)
+        ref = in_chunks(p, 1, lambda s: pw.pair_probe_plain(x[:, s], w, mode))
+        torch.cuda.synchronize()
+        err = max(err, int((out.long() - ref.long()).abs().max()))
+        if out.shape != (w.shape[0], p) or not torch.equal(out, ref):
+            raise AssertionError(f"q8_probe P={p} D={d} {mode}: kernel != plain (max |err| {err})")
+        del ref
+    onedot = lambda: pw.pair_probe(x, w, "onedot")
+    plan = pw.probe_plan(p, w.shape[0], d, "onedot",
+                         torch.cuda.get_device_properties(dev).multi_processor_count)
+    entry = {"rows": p, "width": d, "cols": w.shape[0], "modes": list(pw.PROBE_MODES),
+             "max_abs_err": err, "ms": cuda_median_ms(onedot),
+             "plain_ms": cuda_median_ms(lambda: in_chunks(p, 1, lambda s: pw.pair_probe_plain(
+                 x[:, s], w, "onedot")), iters=3),
+             **bound((x, w), out, 2.0 * w.shape[0] * d * p, "int8"),
+             "staging": plan.staging, "split": plan.split, "grid": plan.grid,
+             "library_ms": None}
+    try:  # one PyTorch call of the same product, never used by the port
+        lib = torch._int_mm(w, x)
+        torch.cuda.synchronize()
+        entry["library_equal"] = torch.equal(lib, out)
+        entry["library_ms"] = cuda_median_ms(lambda: torch._int_mm(w, x))
+        del lib
+    except RuntimeError as exc:
+        entry["library_refused"] = str(exc)[:300]
+    return entry
+
+
+def log_probe(name: str, c: dict) -> None:
+    lib = c["library_ms"]
+    log(f"q8_probe {name} plan: P={c['rows']} D={c['width']} staging {c['staging']} split "
+        f"{c['split']} grid {c['grid']}: onedot {c['ms']:.4f} ms, "
+        f"{100 * c['bound_ms'] / c['ms']:.1f}% of the {c['bound_ms']:.4f} ms bound, plain "
+        f"{c['plain_ms']:.4f} ms, torch._int_mm "
+        + (f"{lib:.4f} ms" if lib is not None else "refused the shapes"))
+
+
 def phase_variant_check(dev) -> dict:
     """K4, K5, K6 and the probe against their plain versions (run in
     chunks of rows) at the tool geometry, a ragged P and the VidOR layout:
     K4, K6 and the probe equal bit for bit, K4 equal to K1 and K6 to K1
     transposed on the same rows, K5 within its bound; kernel and plain
-    timed at each; torch._int_mm beside the probe at the tool geometry."""
+    timed at each; then the probe alone at PROBE_CASES."""
     from tspn_tpu_torch.data.layout import FeatureLayout
     from tspn_tpu_torch.ops import pairwise as pw
 
@@ -1141,34 +1201,8 @@ def phase_variant_check(dev) -> dict:
                 report[key][name]["worst_err_over_bound"] = worst5
             del out
 
-        probe_err = 0
-        for mode in pw.PROBE_MODES:
-            out = pw.pair_probe(t["xt"], t["w_probe"], mode)
-            ref = in_chunks(p, 1, lambda s: pw.pair_probe_plain(t["xt"][:, s], t["w_probe"], mode))
-            torch.cuda.synchronize()
-            probe_err = max(probe_err, int((out.long() - ref.long()).abs().max()))
-            if out.shape != (PROBE_ROWS, p) or not torch.equal(out, ref):
-                raise AssertionError(f"q8_probe {name} {mode}: kernel != plain "
-                                     f"(max |err| {probe_err})")
-        del ref
-        onedot = lambda: pw.pair_probe(t["xt"], t["w_probe"], "onedot")
-        entry = {"rows": p, "width": d, "cols": PROBE_ROWS, "modes": list(pw.PROBE_MODES),
-                 "max_abs_err": probe_err, "ms": cuda_median_ms(onedot),
-                 "plain_ms": cuda_median_ms(lambda: in_chunks(p, 1, lambda s: pw.pair_probe_plain(
-                     t["xt"][:, s], t["w_probe"], "onedot")), iters=3),
-                 **bound((t["xt"], t["w_probe"]), out, 2.0 * PROBE_ROWS * d * p, "int8"),
-                 "library_ms": None}
-        if name == "tool":  # one PyTorch call of the same product, never used by the port
-            try:
-                lib = torch._int_mm(t["w_probe"], t["xt"])
-                torch.cuda.synchronize()
-                entry["library_equal"] = torch.equal(lib, out)
-                entry["library_ms"] = cuda_median_ms(lambda: torch._int_mm(t["w_probe"], t["xt"]))
-                del lib
-            except RuntimeError as exc:
-                entry["library_refused"] = str(exc)[:300]
-        report["q8_probe"][name] = entry
-        del out, t
+        report["q8_probe"][name] = probe_entry(t["xt"], t["w_probe"], dev)
+        del t
         torch.cuda.empty_cache()
         for key in report:
             c = report[key][name]
@@ -1179,6 +1213,14 @@ def phase_variant_check(dev) -> dict:
                 + f" kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms bound "
                 f"{c['bound_ms']:.4f} ms ({c['bound_by']})"
                 + (f" library {c['library_ms']}" if key == "q8_probe" else ""))
+        log_probe(name, report["q8_probe"][name])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for name, p, d in PROBE_CASES:
+        x = torch.randint(-128, 128, (d, p), generator=gen, device=dev, dtype=torch.int8)
+        w = torch.randint(-128, 128, (PROBE_ROWS, d), generator=gen, device=dev, dtype=torch.int8)
+        report["q8_probe"][name] = probe_entry(x, w, dev)
+        log_probe(name, report["q8_probe"][name])
+        del x, w
     report["check_launches"] = {k: pw.LAUNCHES[k] - before[k] for k in pw.LAUNCHES}
     log(f"variant checks: launches {report['check_launches']}; torch._int_mm "
         + json.dumps({k: v for k, v in report["q8_probe"]["tool"].items()
@@ -1469,7 +1511,9 @@ def phase_roi_check(dev) -> dict:
     geometry in f32 and bf16, within 1e-5 * T + 1e-6 (plus one bf16 ulp
     for a bf16 output); kernel, plain and, for selector and constg,
     torch.matmul with G materialized, timed, each beside its bound. Then
-    selector and constg at the tiling edges (ROI_EDGE_CASES), checked."""
+    all three at the tiling edges (ROI_EDGE_CASES; the fused kernel where
+    W <= 112, and it must refuse the rest) and roi_sep_fused at
+    ROI_SEP_EDGE_CASES, checked."""
     from tspn_tpu_torch.ops import roi_probes as rp
     from tspn_tpu_torch.tools import roi_common as rc
 
@@ -1508,15 +1552,24 @@ def phase_roi_check(dev) -> dict:
                 f"{entry['library_ms']}")
         del feats
         torch.cuda.empty_cache()
-    for case, b, r, h, w, c in ROI_EDGE_CASES:
+    for case, b, r, h, w, c in ROI_EDGE_CASES + ROI_SEP_EDGE_CASES:
         e32, eboxes = roi_edge_inputs(b, r, h, w, c, dev)
         eterms = rc.sum_terms(e32, eboxes)
         econst = rp.roi_constg_plain(e32.abs(), eboxes).abs()
         for dtype in ("f32", "bf16"):
             feats = e32.to(rc.DTYPES[dtype])
-            for name, kernel, plain, t in (
-                    ("roi_selector", rp.roi_selector, rp.roi_selector_plain, eterms),
-                    ("roi_constg", rp.roi_constg, rp.roi_constg_plain, econst)):
+            cases = [("roi_sep_fused", rp.roi_sep_fused, rp.roi_sep_fused_plain, eterms)]
+            if w > 112:  # past the fused kernel's contract: it must refuse
+                try:
+                    rp.roi_sep_fused(feats, eboxes)
+                except ValueError:
+                    cases = []
+                else:
+                    raise AssertionError(f"roi_sep_fused took a {h} x {w} map")
+            if c % 128 == 0:
+                cases += [("roi_selector", rp.roi_selector, rp.roi_selector_plain, eterms),
+                          ("roi_constg", rp.roi_constg, rp.roi_constg_plain, econst)]
+            for name, kernel, plain, t in cases:
                 _, entry = roi_within_plain(f"{name} {dtype} {case}", kernel, plain, feats,
                                             eboxes, t)
                 report[name][f"{case}_{dtype}"] = entry
@@ -1765,15 +1818,16 @@ def phase_detector_train(dev) -> dict:
 
 
 def build_kernels() -> None:
-    """The eight sources' nvcc builds (K1, K4, K6 and the probe share
-    q8s.cu; Kr, Kn and Ks4 rel.cu; T-roi 1-3 roi_probes.cu), one per
-    source, started together."""
+    """The nine sources' nvcc builds (K1, K4 and K6 share q8s.cu; Kr, Kn
+    and Ks4 rel.cu; T-roi 1-3 roi_probes.cu), one per source, started
+    together."""
     from tspn_tpu_torch.ops import _cuda
 
     libraries = (_cuda.q8s_library, _cuda.q8f_fused_library,
                  _cuda.fused_classify_library, _cuda.roi_align_library,
                  _cuda.q8_bf16_library, _cuda.rel_library,
-                 _cuda.fused_classify_bf16_library, _cuda.roi_sep_fused_library)
+                 _cuda.fused_classify_bf16_library, _cuda.roi_sep_fused_library,
+                 _cuda.pair_probe_library)
     with ThreadPoolExecutor(len(libraries)) as pool:
         for f in [pool.submit(lib) for lib in libraries]:
             f.result()
@@ -1911,6 +1965,7 @@ def main() -> int:
 
     report_build("q8s")
     report_build("q8_bf16")
+    report_build("pair_probe")
     variant_checks = phase_variant_check(dev)
     tool, counts_tool = main_path("bench_pair_kernels", lambda: phase_tool(dev))
     per_leg = WARMUP + ITERS * REPS  # one launch per timed call of a leg
@@ -2063,7 +2118,7 @@ def main() -> int:
         kernel_entry("q8t", "tspn_tpu_torch/csrc/q8s.cu",
                      "tspn_tpu/ops/pairwise.py:1210", launches["q8t"],
                      variant_checks["q8t"], "tool", check_launches=checked["q8t"]),
-        kernel_entry("q8_probe", "tspn_tpu_torch/csrc/q8s.cu",
+        kernel_entry("q8_probe", "tspn_tpu_torch/csrc/pair_probe.cu",
                      "tools/bench_pair_kernels.py:111", launches["q8_probe"],
                      variant_checks["q8_probe"], "tool", check_launches=checked["q8_probe"],
                      library_refused=variant_checks["q8_probe"]["tool"].get("library_refused")),

@@ -18,6 +18,11 @@ VidVRD and VidOR layouts), from numpy seeds:
   and K6 equals K1 transposed; the torch block scales equal the numpy
   helper's; the bf16 weight rounding equals JAX's ``astype(bfloat16)``;
   the probe equals the exact numpy int64 product in all three modes.
+* The probe kernel's planner (``probe_plan``): x is staged by TMA where P
+  % 16 == 0, else by aligned words (shifted where P % 4 != 0); the D
+  shares of a split cover D in whole 128-byte chunks; at the VidOR
+  geometry (333 pairs, 3 tiles) the shares fill the card's SMs; stream
+  mode runs 32-row tiles.
 * On the CPU the dispatchers launch nothing; another device raises.
 * The ported tool runs every leg at ``--device cpu --segments 1``, and its
   K6 output is its K1 output transposed.
@@ -178,6 +183,46 @@ def test_probe_plain_is_exact_product(mode):
     np.testing.assert_array_equal(out.numpy(), want)
     with pytest.raises(ValueError, match="mode"):
         tpw.pair_probe(*_t(x, w), "tiles")
+
+
+SMS = 132  # an H100 SXM
+
+
+@pytest.mark.parametrize("p,staging", [(95232, "tma"), (4096, "tma"), (16, "tma"),
+                                       (95236, "word"), (1036, "word"), (95155, "shift"),
+                                       (333, "shift"), (1, "shift")])
+def test_probe_plan_staging_follows_p(p, staging):
+    assert tpw.probe_plan(p, 160, 11264, "onedot", SMS).staging == staging
+
+
+@pytest.mark.parametrize("p,d", [(333, 11392), (1, 11264), (4096, 11264), (1037, 11264),
+                                 (95232, 11264), (333, 64), (1, 64 * 3)])
+def test_probe_plan_splits_cover_d_in_whole_chunks(p, d):
+    plan = tpw.probe_plan(p, 160, d, "onedot", SMS)
+    assert plan.chunks * tpw.PROBE_CHUNK >= d > (plan.chunks - 1) * tpw.PROBE_CHUNK
+    shares = plan.shares()
+    assert len(shares) == plan.split and shares[0][0] == 0 and shares[-1][1] == plan.chunks
+    assert all(lo < hi for lo, hi in shares)
+    assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+    assert plan.grid == min(plan.tiles * plan.split, SMS) and plan.tiles * plan.split <= max(
+        SMS, plan.tiles)
+    if plan.tiles >= SMS:
+        assert plan.split == 1
+
+
+def test_probe_plan_fills_the_sms_at_vidor():
+    plan = tpw.probe_plan(333, 160, 11392, "onedot", SMS)
+    assert plan.tiles == 3 and plan.split > 1 and plan.tiles * plan.split >= SMS
+    assert plan.grid == SMS
+
+
+@pytest.mark.parametrize("mode,n,live", [("stream", 32, 32), ("onedot", 160, 160),
+                                         ("blocks_noscale", 160, 160)])
+def test_probe_plan_rows_by_mode(mode, n, live):
+    plan = tpw.probe_plan(95232, 160, 11264, mode, SMS)
+    assert (plan.n, plan.live, plan.tiles) == (n, live, 744)
+    assert tpw.probe_plan(95232, 200, 11264, mode, SMS).tiles == 744 * (1 if mode == "stream"
+                                                                        else 2)
 
 
 @pytest.mark.parametrize("name", ["q8i8", "q8bf", "q8t", "q8_probe"])

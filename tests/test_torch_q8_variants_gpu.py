@@ -8,6 +8,9 @@ flax are absent: ``python -m pytest tests/test_torch_q8_variants_gpu.py -q``.
   bit for bit, K4 equals K1 fed the same block scales and K6 equals K1
   transposed, at the VidVRD and VidOR layouts with a ragged row count,
   zero rows and empty BoW blocks; each call launches its kernel once.
+  The probe in all three modes also at 333 pairs (D split across blocks),
+  1 pair, 4,096 pairs (x staged by TMA), 1,036 (aligned word loads) and
+  at D 64 (one zero-padded chunk).
 * K5 (q8bf) agrees with its plain version within
   1e-5 * (|q_h| @ |w_h| s + sum_k |q_k| @ |w_k| / L1_k + |b|) + 1e-6.
 * The wrappers raise on a bad shape, dtype, alignment or mode.
@@ -95,12 +98,18 @@ def test_q8bf_within_bound_of_plain(cuda_device, objects, p):
 
 
 @pytest.mark.parametrize("mode", tpw.PROBE_MODES)
-@pytest.mark.parametrize("p", [1037, 1024])
-def test_probe_equals_plain(cuda_device, mode, p):
-    lo, t = _inputs(35, p, cuda_device)
-    out = _launched("q8_probe", lambda: tpw.pair_probe(t["xt"], t["w_probe"], mode))
+@pytest.mark.parametrize("p,d", [(1037, 11264), (1024, 11264), (333, 11392), (1, 11264),
+                                 (4096, 11264), (1036, 11264), (4096, 64), (333, 64)])
+def test_probe_equals_plain(cuda_device, mode, p, d):
+    rng = np.random.RandomState(p + d)
+    x = rng.randint(-128, 128, size=(d, p)).astype(np.int8)
+    x[:, -1] = -128  # the largest magnitude: 128^2 * D
+    w = rng.randint(-128, 128, size=(160, d)).astype(np.int8)
+    w[0] = -128
+    xt, wt = torch.from_numpy(x).to(cuda_device), torch.from_numpy(w).to(cuda_device)
+    out = _launched("q8_probe", lambda: tpw.pair_probe(xt, wt, mode))
     assert out.dtype == torch.int32 and out.shape == (160, p)
-    assert torch.equal(out, tpw.pair_probe_plain(t["xt"], t["w_probe"], mode))
+    assert torch.equal(out, tpw.pair_probe_plain(xt, wt, mode))
 
 
 def test_variants_reject_bad_operands(cuda_device):

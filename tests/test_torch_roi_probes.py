@@ -16,10 +16,11 @@ random boxes and boxes across the map's border, in f32 and bf16:
 * T-roi 3, ``roi_constg_plain`` (closed form: the constant times the
   map's sum), against the tool's ``roi_constg`` closure.
 
-The plain versions, which the card tests hold the GEMM kernels to, are
-also held at the kernels' tiling edges: one RoI and three on 9 x 11 and
-11 x 9 maps (the selector against ``roi_align_pallas`` in interpret mode
-and ``roi_align_xla``, constg against its dense G @ F in float64).
+The plain versions, which the card tests hold the kernels to, are also
+held at the kernels' tiling edges: one RoI and three on 9 x 11 and 11 x 9
+maps (the fused and selector forms against ``roi_align_pallas`` in
+interpret mode and ``roi_align_xla``, constg against its dense G @ F in
+float64).
 
 Tolerance: ``1e-5 * T + 1e-6`` with T the summed |term| of each output
 (every weight is non-negative, so T is the function on |F|), plus one
@@ -198,6 +199,28 @@ def test_selector_plain_at_ragged_geometries(dtype, geom):
     tdt, jdt = DT[dtype]
     feats, boxes = _ragged_inputs(r, h, w, seed=5)
     out = rp.roi_selector_plain(torch.from_numpy(feats).to(tdt), torch.from_numpy(boxes))
+    assert out.dtype == tdt and out.shape == (1, r, 14, 14, C)
+    terms = _terms(feats, boxes)[0]
+    rel = 2.0 ** -6 if dtype == "bf16" else 1e-5
+    bx = jnp.asarray(boxes[0])
+    pallas = roi_align_pallas(jnp.asarray(feats[0]).astype(jdt), bx, output_size=14,
+                              sampling_ratio=2)
+    _assert_within(out[0].float(), pallas.astype(jnp.float32), terms, rel=rel)
+    xla = roi_align_xla(jnp.asarray(feats[0]), bx, output_size=14, sampling_ratio=2)
+    _assert_within(out[0].float(), xla, terms, rel=rel)
+
+
+@pytest.mark.parametrize("geom", RAGGED)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_sep_fused_plain_at_ragged_geometries(dtype, geom):
+    """roi_sep_fused_plain, the fused kernel's oracle, against
+    roi_align_pallas (interpret mode) and roi_align_xla on non-square maps
+    at R = 1 and 3 (in bf16 within 2**-6 * T: wy, wx, the map and the
+    output each round to bf16)."""
+    r, h, w = geom
+    tdt, jdt = DT[dtype]
+    feats, boxes = _ragged_inputs(r, h, w, seed=7)
+    out = rp.roi_sep_fused_plain(torch.from_numpy(feats).to(tdt), torch.from_numpy(boxes))
     assert out.dtype == tdt and out.shape == (1, r, 14, 14, C)
     terms = _terms(feats, boxes)[0]
     rel = 2.0 ** -6 if dtype == "bf16" else 1e-5

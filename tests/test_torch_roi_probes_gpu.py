@@ -11,7 +11,9 @@ Imports only torch, numpy and tspn_tpu_torch:
   bf16 output, in f32 and bf16, at the tools' 40 x 40 maps with 1024
   channels, at a small 8 x 8 x 128 map with boxes across the border, and
   at the edges of the GEMM's stacked-row tiling (R = 1, R = 3, a 29 x 33
-  map, C = 384, a 128 x 128 map); each launches once.
+  map, C = 384, a 128 x 128 map), and for ``roi_sep_fused`` also at C = 96
+  (32 x an odd number) and W = 112 (the widest it takes); each launches
+  once.
 * In f32, the fused and selector kernels agree with ``roi_align_plain``
   within the same bound.
 * The wrappers raise on operands the kernels do not take.
@@ -88,6 +90,26 @@ def test_kernel_within_bound_of_plain(cuda_device, name, shape, dtype):
     if dtype == "f32" and name != "roi_constg":
         oracle = roi_common.oracle(feats32, boxes)
         assert roi_common.over_bound(out, oracle, terms, 1e-5) <= 1.0
+
+
+# (images, RoIs, H, W, C) that only roi_sep_fused takes: C = 96, and W = 112
+# on a tall map (8 RoIs a block: 13 RoIs leave the second block part empty)
+SEP_SHAPES = [(2, 13, 24, 24, 96), (1, 3, 40, 112, 256), (1, 5, 128, 112, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", SEP_SHAPES)
+def test_sep_fused_edges_within_bound_of_plain(cuda_device, shape, dtype):
+    feats32, boxes = _inputs(*shape, cuda_device)
+    feats = feats32.to(roi_common.DTYPES[dtype])
+    before = rp.LAUNCHES["roi_sep_fused"]
+    out = rp.roi_sep_fused(feats, boxes)
+    ref = rp.roi_sep_fused_plain(feats, boxes)
+    torch.cuda.synchronize()
+    assert rp.LAUNCHES["roi_sep_fused"] == before + 1
+    assert out.dtype == ref.dtype and out.shape == ref.shape == (*shape[:2], 14, 14, shape[4])
+    terms = roi_common.sum_terms(feats32, boxes)
+    assert roi_common.over_bound(out, ref, terms, 1e-5, ulp=dtype == "bf16") <= 1.0
 
 
 def test_wrappers_reject_bad_operands(cuda_device):

@@ -1,6 +1,6 @@
 // int8 x int8 segmented pair scorers for Hopper (sm_90a): K1 and its
-// variants K4 (in-kernel block scales), K6 (transposed) and the raw int8
-// probe, as instantiations of one kernel template.
+// variants K4 (in-kernel block scales) and K6 (transposed), as
+// instantiations of one kernel template.
 //
 // K1 replaces tspn_tpu/ops/pairwise.py::normalize_classify_q8s_pallas
 // (Pallas kernel _kernel_q8s). It computes, for rows p < P and output
@@ -37,11 +37,6 @@
 //   shared tile as K1's. The thread-to-block mapping puts the 32 lanes of
 //   a warp on 32 distinct banks for every store. Same integer sums, same
 //   f32 fold: K6 equals K1 transposed bit for bit.
-// - The probe replaces the Pallas kernel of tools/bench_pair_kernels.py
-//   (_mk_probe): K6's staging with no segments and no epilogue, writing
-//   the int32 product w (R, D) x x (D, P) -> (R, P). Its "stream" mode
-//   computes rows r < 32 only and writes zeros below them (r_live = 32).
-//   |sum| <= 128^2 * D < 2^31 for D < 131072.
 //
 // Design. One thread block computes a 64-row x 64-column output tile with
 // 256 threads; each thread keeps a 4 x 4 int32 micro-tile and a 4 x 4 f32
@@ -76,7 +71,7 @@ constexpr int kWords = kChunk / 4;         // int32 words of K per stage
 constexpr int kStride = kWords + 1;        // padded smem row: no bank conflicts
 constexpr int kThreads = 256;
 
-enum Mode { kQ8s, kQ8i8, kQ8t, kProbe };
+enum Mode { kQ8s, kQ8i8, kQ8t };
 
 // 4 K rows (r[i] holds pairs p..p+3 of row k+i) -> 4 pair words (c[j]
 // holds K rows k..k+3 of pair p+j), byte i of c[j] = byte j of r[i]
@@ -94,15 +89,13 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&
 // kQ8s:   q (P, D), scales (P, 16), out f32 (P, R)
 // kQ8i8:  q (P, D), scales = head scale (P,), out f32 (P, R)
 // kQ8t:   q = xt (D, P), scales = s_t (16, P), out f32 (R, P)
-// kProbe: q = x (D, P), qw_t = w (R, D), out int32 (R, P); rows r >= r_live
-//         are zero
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 q8s_kernel(const int8_t* __restrict__ q, const float* __restrict__ scales,
            const int8_t* __restrict__ qw_t, const float* __restrict__ sw,
            const float* __restrict__ bias, void* __restrict__ out_,
-           int P, int R, int D, int hp, int blk, int col_tiles, int r_live) {
-  constexpr bool kTransposed = kMode == kQ8t || kMode == kProbe;
+           int P, int R, int D, int hp, int blk, int col_tiles) {
+  constexpr bool kTransposed = kMode == kQ8t;
   __shared__ int32_t a_s[kTileRows * kStride];
   __shared__ int32_t b_s[kTileCols * kStride];
   __shared__ float inv_s[2][kTileRows];  // K4: 1/L1 of the closing block
@@ -118,22 +111,11 @@ q8s_kernel(const int8_t* __restrict__ q, const float* __restrict__ scales,
   const int p_lane = kTransposed ? tx : ty;
   const int r_lane = kTransposed ? ty : tx;
 
-  if constexpr (kMode == kProbe) {
-    if (col0 >= r_live) {  // a tile of rows that stream mode leaves zero
-      int32_t* out = static_cast<int32_t*>(out_);
-      for (int e = tid; e < kTileRows * kTileCols; e += kThreads) {
-        const int r = col0 + e / kTileRows, p = row0 + e % kTileRows;
-        if (r < R && p < P) out[(size_t)r * P + p] = 0;
-      }
-      return;
-    }
-  }
-
   // staging: thread tid copies 16 bytes (4 words) of one row of each operand
   const int ld_row = tid / 4;
   const int ld_word = (tid % 4) * 4;
   const bool a_ok = row0 + ld_row < P;
-  const bool b_ok = col0 + ld_row < (kMode == kProbe ? r_live : R);
+  const bool b_ok = col0 + ld_row < R;
   const int8_t* a_src = q + (size_t)(row0 + ld_row) * D + ld_word * 4;
   const int8_t* b_src = qw_t + (size_t)(col0 + ld_row) * D + ld_word * 4;
   // transposed staging: thread (pg, kw) reads K rows 4kw..4kw+3 of pairs
@@ -224,29 +206,27 @@ q8s_kernel(const int8_t* __restrict__ q, const float* __restrict__ scales,
     }
     __syncthreads();
 
-    if constexpr (kMode != kProbe) {
-      if (k0 + kChunk == seg_end) {
+    if (k0 + kChunk == seg_end) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = row0 + p_lane + 16 * i;
-          float s;
-          if constexpr (kMode == kQ8s) {
-            s = row < P ? scales[(size_t)row * 16 + seg] : 0.0f;
-          } else if constexpr (kMode == kQ8t) {
-            s = row < P ? scales[(size_t)seg * P + row] : 0.0f;
-          } else {  // kQ8i8: the row's head scale, then the in-kernel 1/L1
-            s = seg == 0 ? (row < P ? scales[row] : 0.0f) : inv_s[seg & 1][p_lane + 16 * i];
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float part = __fmul_rn(__int2float_rn(iacc[i][j]), s);
-            facc[i][j] = seg == 0 ? part : __fadd_rn(facc[i][j], part);
-            iacc[i][j] = 0;
-          }
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + p_lane + 16 * i;
+        float s;
+        if constexpr (kMode == kQ8s) {
+          s = row < P ? scales[(size_t)row * 16 + seg] : 0.0f;
+        } else if constexpr (kMode == kQ8t) {
+          s = row < P ? scales[(size_t)seg * P + row] : 0.0f;
+        } else {  // kQ8i8: the row's head scale, then the in-kernel 1/L1
+          s = seg == 0 ? (row < P ? scales[row] : 0.0f) : inv_s[seg & 1][p_lane + 16 * i];
         }
-        ++seg;
-        seg_end += blk;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float part = __fmul_rn(__int2float_rn(iacc[i][j]), s);
+          facc[i][j] = seg == 0 ? part : __fadd_rn(facc[i][j], part);
+          iacc[i][j] = 0;
+        }
       }
+      ++seg;
+      seg_end += blk;
     }
   }
 
@@ -258,15 +238,11 @@ q8s_kernel(const int8_t* __restrict__ q, const float* __restrict__ scales,
     for (int j = 0; j < 4; ++j) {
       const int col = col0 + r_lane + 16 * j;
       if (col >= R) continue;
-      if constexpr (kMode == kProbe) {
-        static_cast<int32_t*>(out_)[(size_t)col * P + row] = col < r_live ? iacc[i][j] : 0;
-      } else {
-        const float y = __fadd_rn(__fmul_rn(facc[i][j], sw[col]), bias[col]);
-        if constexpr (kTransposed)
-          static_cast<float*>(out_)[(size_t)col * P + row] = y;
-        else
-          static_cast<float*>(out_)[(size_t)row * R + col] = y;
-      }
+      const float y = __fadd_rn(__fmul_rn(facc[i][j], sw[col]), bias[col]);
+      if constexpr (kTransposed)
+        static_cast<float*>(out_)[(size_t)col * P + row] = y;
+      else
+        static_cast<float*>(out_)[(size_t)row * R + col] = y;
     }
   }
 }
@@ -274,15 +250,14 @@ q8s_kernel(const int8_t* __restrict__ q, const float* __restrict__ scales,
 template <int kMode>
 int launch(const void* q, const void* scales, const void* qw_t, const void* sw,
            const void* bias, void* out, int P, int R, int D, int hp, int blk,
-           int r_live, void* stream) {
+           void* stream) {
   const int col_tiles = (R + kTileCols - 1) / kTileCols;
   const long long row_tiles = ((long long)P + kTileRows - 1) / kTileRows;
   const long long tiles = row_tiles * col_tiles;
   if (P <= 0 || R <= 0 || tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   q8s_kernel<kMode><<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)q, (const float*)scales, (const int8_t*)qw_t,
-      (const float*)sw, (const float*)bias, out, P, R, D, hp, blk, col_tiles,
-      r_live);
+      (const float*)sw, (const float*)bias, out, P, R, D, hp, blk, col_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -297,7 +272,7 @@ extern "C" int tspn_q8s_launch(const void* q, const void* scales,
                                const void* qw_t, const void* sw,
                                const void* bias, void* out, int P, int R,
                                int D, int hp, int blk, void* stream) {
-  return launch<kQ8s>(q, scales, qw_t, sw, bias, out, P, R, D, hp, blk, R, stream);
+  return launch<kQ8s>(q, scales, qw_t, sw, bias, out, P, R, D, hp, blk, stream);
 }
 
 // head_scale (P,) in place of K1's (P, 16) scales
@@ -305,7 +280,7 @@ extern "C" int tspn_q8i8_launch(const void* q, const void* head_scale,
                                 const void* qw_t, const void* sw,
                                 const void* bias, void* out, int P, int R,
                                 int D, int hp, int blk, void* stream) {
-  return launch<kQ8i8>(q, head_scale, qw_t, sw, bias, out, P, R, D, hp, blk, R, stream);
+  return launch<kQ8i8>(q, head_scale, qw_t, sw, bias, out, P, R, D, hp, blk, stream);
 }
 
 // xt (D, P), scales_t (16, P) -> out (R, P)
@@ -313,13 +288,5 @@ extern "C" int tspn_q8t_launch(const void* xt, const void* scales_t,
                                const void* qw_t, const void* sw,
                                const void* bias, void* out, int P, int R,
                                int D, int hp, int blk, void* stream) {
-  return launch<kQ8t>(xt, scales_t, qw_t, sw, bias, out, P, R, D, hp, blk, R, stream);
-}
-
-// x (D, P), w (R, D) -> int32 out (R, P); rows r >= r_live are zero
-extern "C" int tspn_q8_probe_launch(const void* x, const void* w, void* out,
-                                    int P, int R, int D, int r_live,
-                                    void* stream) {
-  return launch<kProbe>(x, nullptr, w, nullptr, nullptr, out, P, R, D, D, D,
-                        r_live, stream);
+  return launch<kQ8t>(xt, scales_t, qw_t, sw, bias, out, P, R, D, hp, blk, stream);
 }

@@ -26,17 +26,41 @@
 // rounded to the map's dtype (bf = identity for f32),
 //     tmp[i, w, c] = sum_h wy[i, h] F[h, w, c]            (f32)
 //     out[i, j, c] = sum_w wx[j, w] tmp[i, w, c]          -> map dtype
-// One block per (RoI, 32-channel tile): the intermediate tmp (14 x W x 32
-// f32, 71.7 KB at W 40) lives in shared memory and never touches HBM, the
-// role VMEM played for the TPU kernel's (8*14, W*C) tile (18 MB at its
-// defaults, far above an SM's 228 KB; hence one RoI and 32 channels).
-// Stage 1: each thread owns (w, c) columns and walks h four at a time,
-// reading wy with 16-byte broadcasts; stage 2: each thread owns (i, c)
-// pairs and walks w the same way. The TPU kernel's one-hot expansion of
-// wx (`ee`) is a workaround for its lack of gathers: wx is indexed
-// directly. Both stages run on the CUDA cores in f32 (the products of
-// bf16 values are exact in f32).
-//
+// dense over H and W, as the TPU kernel (a tap of weight 0 still counts:
+// it carries a NaN or Inf of the map, as the plain version does).
+// What bounds it (the tool's 4 x 256 RoIs on 40 x 40 x 1024): 47 GFLOP of
+// stage 1 and 16.4 of stage 2; f32 maps on the CUDA cores, 0.946 ms at 67
+// TFLOP/s; bf16 maps with stage 1 on the bf16 tensor cores and stage 2 in
+// f32 (tmp is f32 in the TPU kernel), 0.293 ms. The first design (one RoI
+// x 32 channels a block, one (w, c) column a thread, F read by scalar
+// loads in the FMA loop, tables rebuilt by every channel block, bf16 on the
+// f32 loop) reached 24% and 7% of that. This one:
+//  - A block takes 8 RoIs of one image (they share every load of F: an
+//    eighth of the L2 traffic) and walks a share of the 16-channel tiles,
+//    building the RoIs' tables once (with the plain versions' arithmetic).
+//  - F streams through a 6-stage cp.async ring of slabs (8 map rows f32, 16
+//    bf16) x 8 columns x 16 channels, loads running ahead of the products.
+//  - The columns go by chunks of 8: stage 1 fills the chunk's tmp (8 RoIs
+//    x 14 x 8 x 16 f32, 64.5 KB, whatever W is), stage 2 adds the chunk into
+//    register accumulators (RoI, bin row i, 4 channels: all 14 j), so the
+//    intermediate never grows with W (and W = 40 needs no padding).
+//  - f32 stage 1: a thread owns (RoI, 7 bins, column, 4 channels); per map
+//    row one float4 of F and broadcasts of wy feed 28 FMAs (two rows at a
+//    time: at 512 threads a thread has 128 registers). bf16 stage 1:
+//    mma.sync.m16n8k16 bf16 -> f32, the 14 bins padded to 16 as A (wy rows
+//    by ldmatrix), F as B by ldmatrix.trans (the slab's rows padded by 16
+//    bytes so that the 8 rows of a matrix hit distinct banks); each warp
+//    owns one RoI's 4 columns x 16 channels. bf16 products are exact in
+//    f32, so only the order of the sums moves.
+//  - Stage 2 (f32 in both): one float4 of tmp and broadcasts of wx feed 56
+//    FMAs; 16-byte (f32) or 8-byte (bf16) streaming stores (the output is
+//    never read back here).
+// Design probes not kept: 4 RoIs x 16-column chunks in 256 threads (twice
+// the L2 traffic, W = 40 padded to 48) was slower; an 8- or 10-stage
+// ring, 16-row f32 slabs and an unrolled stage 2 gained nothing. With the
+// loads removed the kernel keeps most of its time: the FMA issue of stage
+// 1 (f32) and of stage 2 bounds it, not F's traffic.
+
 // roi_gemm (T-roi 2, 3): out[(i,j), c] = sum_{(y,x)} G[(i,j),(y,x)] F[(y,x), c]
 // with G = bf((ty[i][y] * tx[j][x]) * (1/s^2)) (selector: the TPU kernel's
 // _kernel_sel without its one-hot selector matmuls, which only expanded the
@@ -92,12 +116,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int kOut = 14;        // output bins per axis (the C4 head)
 constexpr int kMaxAxis = 128;   // H, W
 constexpr int kMaxRatio = 16;   // s
-constexpr int kThreads = 256;
 
 struct Tap {
   int i0, i1;
@@ -124,20 +149,14 @@ __device__ __forceinline__ float sample_coord(float lo, float extent, int k, int
   return __fadd_rn(lo, __fmul_rn(grid, __fdiv_rn(extent, (float)kOut)));
 }
 
-// t[i * stride + y] for i < kOut, y < size: the summed weight of the s
-// samples of bin i on index y; columns size..stride-1 are zero
-__device__ void axis_table(float* t, int stride, float lo, float extent, int size, int s) {
-  for (int e = threadIdx.x; e < kOut * stride; e += blockDim.x) {
-    const int i = e / stride, y = e % stride;
-    float acc = 0.f;
-    if (y < size)
-      for (int a = 0; a < s; ++a) {
-        const Tap tp = bilinear_1d(sample_coord(lo, extent, i * s + a, s), size);
-        const float v = __fadd_rn(y == tp.i0 ? tp.w0 : 0.f, y == tp.i1 ? tp.w1 : 0.f);
-        acc = __fadd_rn(acc, v);
-      }
-    t[e] = acc;
+// the summed weight of the s samples of bin i on index y < size
+__device__ float bin_weight(float lo, float extent, int size, int s, int i, int y) {
+  float acc = 0.f;
+  for (int a = 0; a < s; ++a) {
+    const Tap tp = bilinear_1d(sample_coord(lo, extent, i * s + a, s), size);
+    acc = __fadd_rn(acc, __fadd_rn(y == tp.i0 ? tp.w0 : 0.f, y == tp.i1 ? tp.w1 : 0.f));
   }
+  return acc;
 }
 
 struct Box {
@@ -154,102 +173,266 @@ __device__ __forceinline__ Box read_box(const float* b) {
   return r;
 }
 
+// v rounded to T and widened back
 template <typename T>
 struct Io;
 template <>
 struct Io<float> {
-  static __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
   static __device__ __forceinline__ float round(float v) { return v; }
-  static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 };
 template <>
 struct Io<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
   static __device__ __forceinline__ float round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16_rn(v);
-  }
 };
 
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(full ? 16 : 0));
+}
+
 // ------------------------------------------------------- T-roi 1: fused
-constexpr int kCt = 32;  // channels per block
+constexpr int kSepG = 8;          // RoIs per block
+constexpr int kSepCt = 16;        // channels per tile
+constexpr int kSepWc = 8;         // columns per chunk
+constexpr int kSepStages = 6;     // cp.async ring of F slabs
+constexpr int kSepThreads = 512;
+constexpr int kTmpStride = kSepWc * kSepCt + 16;  // floats per (RoI, i) row of tmp
+constexpr int kSlabBytes = 16 * (kSepWc * kSepCt * 2 + 16);
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct SepCfg;
+template <>
+struct SepCfg<float> {
+  static constexpr int kRows = 8;                         // map rows per slab
+  static constexpr int kRowBytes = kSepWc * kSepCt * 4;   // threads read along it
+};
+template <>
+struct SepCfg<__nv_bfloat16> {
+  static constexpr int kRows = 16;                        // one k16 step
+  static constexpr int kRowBytes = kSepWc * kSepCt * 2 + 16;  // ldmatrix rows on distinct banks
+};
+
+// dynamic shared memory of a block: ring, tmp, wx (f32), wy (f32 [8][14][hp]
+// or bf16 [8][16][hp + 8])
+template <typename T>
+int sep_smem_bytes(int H, int W) {
+  const int hp = (H + SepCfg<T>::kRows - 1) / SepCfg<T>::kRows * SepCfg<T>::kRows;
+  const int wp = (W + kSepWc - 1) / kSepWc * kSepWc;
+  const int wy = sizeof(T) == 2 ? kSepG * 16 * (hp + 8) * 2 : kSepG * kOut * hp * 4;
+  return kSepStages * kSlabBytes + kSepG * kOut * kTmpStride * 4 + kSepG * kOut * wp * 4 + wy;
+}
+
+// Block (x, y, z): RoIs 8y..8y+7 of image z (clamped to R - 1; stores past R
+// skipped), channel tiles x, x + gridDim.x, ...
+template <typename T>
+__global__ void __launch_bounds__(kSepThreads, 1)
 roi_sep_fused_kernel(const T* __restrict__ feat, const float* __restrict__ boxes,
                      T* __restrict__ out, int R, int H, int W, int C, int s) {
-  extern __shared__ __align__(16) float sm[];
-  const int hp = (H + 3) / 4 * 4, wp = (W + 3) / 4 * 4;
-  float* wy = sm;                 // [kOut][hp], 1/s^2 folded, rounded
-  float* wx = wy + kOut * hp;     // [kOut][wp], rounded
-  float* tmp = wx + kOut * wp;    // [kOut][W][kCt]
+  using Cfg = SepCfg<T>;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  extern __shared__ __align__(16) uint8_t sep_smem[];
+  const int tid = threadIdx.x, b = blockIdx.z, r0 = blockIdx.y * kSepG;
+  const int hp = (H + Cfg::kRows - 1) / Cfg::kRows * Cfg::kRows;
+  const int wp = (W + kSepWc - 1) / kSepWc * kSepWc;
+  const int wy_rows = kBf16 ? 16 : kOut, wy_ld = kBf16 ? hp + 8 : hp;
+  uint8_t* ring = sep_smem;
+  float* tmp = reinterpret_cast<float*>(ring + kSepStages * kSlabBytes);
+  float* wx = tmp + kSepG * kOut * kTmpStride;   // [g][j][wp]
+  T* wy = reinterpret_cast<T*>(wx + kSepG * kOut * wp);  // [g][i][wy_ld]
 
-  const int roi = blockIdx.y;     // b * R + r
-  const int b = roi / R;
-  const int c0 = blockIdx.x * kCt;
-  const Box bx = read_box(boxes + 4 * (size_t)roi);
-  axis_table(wy, hp, bx.y0, bx.bh, H, s);
-  axis_table(wx, wp, bx.x0, bx.bw, W, s);
-  __syncthreads();
-  const float inv_s2 = __fdiv_rn(1.f, (float)(s * s));
-  for (int e = threadIdx.x; e < kOut * hp; e += kThreads)
-    wy[e] = Io<T>::round(__fmul_rn(wy[e], inv_s2));
-  for (int e = threadIdx.x; e < kOut * wp; e += kThreads) wx[e] = Io<T>::round(wx[e]);
-  __syncthreads();
+  {  // the tables of the block's RoIs; zero past H and W and in bf16 rows 14, 15
+    const float inv_s2 = __fdiv_rn(1.f, (float)(s * s));
+    const int n_wx = kSepG * kOut * wp, n_wy = kSepG * wy_rows * wy_ld;
+    for (int e = tid; e < n_wx + n_wy; e += kSepThreads) {
+      const bool is_x = e < n_wx;
+      const int f = is_x ? e : e - n_wx, ld = is_x ? wp : wy_ld, rows = is_x ? kOut : wy_rows;
+      const int g = f / (rows * ld), i = f / ld % rows, y = f % ld, size = is_x ? W : H;
+      const Box bx = read_box(boxes + 4 * ((size_t)b * R + min(r0 + g, R - 1)));
+      const float v = i < kOut && y < size ? bin_weight(is_x ? bx.x0 : bx.y0, is_x ? bx.bw : bx.bh,
+                                                        size, s, i, y)
+                                           : 0.f;
+      if (is_x)
+        wx[f] = Io<T>::round(v);
+      else if constexpr (kBf16)
+        wy[f] = __float2bfloat16_rn(__fmul_rn(v, inv_s2));
+      else
+        wy[f] = __fmul_rn(v, inv_s2);
+    }
+  }
 
-  // stage 1: tmp[i][w][c] = sum_h wy[i][h] F[h][w][c0 + c]
-  const T* img = feat + (size_t)b * H * W * C + c0;
-  for (int col = threadIdx.x; col < W * kCt; col += kThreads) {
-    const int w = col / kCt, c = col % kCt;
-    float acc[kOut];
-#pragma unroll
-    for (int i = 0; i < kOut; ++i) acc[i] = 0.f;
-    for (int h = 0; h < hp; h += 4) {
-      float f[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        f[e] = h + e < H ? Io<T>::load(img + ((size_t)(h + e) * W + w) * C + c) : 0.f;
-#pragma unroll
-      for (int i = 0; i < kOut; ++i) {
-        const float4 t = *reinterpret_cast<const float4*>(wy + i * hp + h);
-        acc[i] = fmaf(t.x, f[0], acc[i]);
-        acc[i] = fmaf(t.y, f[1], acc[i]);
-        acc[i] = fmaf(t.z, f[2], acc[i]);
-        acc[i] = fmaf(t.w, f[3], acc[i]);
+  const int n_ct = C / kSepCt, n_wc = wp / kSepWc, n_hb = hp / Cfg::kRows;
+  const int per_tile = n_wc * n_hb;
+  const int my_tiles = (n_ct - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int slabs = my_tiles * per_tile;
+  const T* img = feat + (size_t)b * H * W * C;
+  // slab q: tile q / per_tile, chunk q % per_tile / n_hb, row block q % n_hb;
+  // pieces of 16 bytes (row, column, channel piece), zero past H and W
+  auto load_slab = [&](int q) {
+    if (q < slabs) {
+      constexpr int kPieces = kSepCt * (int)sizeof(T) / 16;
+      const int c0 = ((int)blockIdx.x + q / per_tile * (int)gridDim.x) * kSepCt;
+      const int w0 = q % per_tile / n_hb * kSepWc, h0 = q % n_hb * Cfg::kRows;
+      uint8_t* dst = ring + q % kSepStages * kSlabBytes;
+      for (int e = tid; e < Cfg::kRows * kSepWc * kPieces; e += kSepThreads) {
+        const int hh = e / (kSepWc * kPieces), ww = e / kPieces % kSepWc, pc = e % kPieces;
+        const int h = h0 + hh, w = w0 + ww;
+        const bool in = h < H && w < W;
+        cp_async16(dst + hh * Cfg::kRowBytes + (ww * kPieces + pc) * 16,
+                   img + (size_t)(in ? h * W + w : 0) * C + c0 + pc * (16 / (int)sizeof(T)), in);
       }
     }
-#pragma unroll
-    for (int i = 0; i < kOut; ++i) tmp[(i * W + w) * kCt + c] = acc[i];
-  }
-  __syncthreads();
+    asm volatile("cp.async.commit_group;\n" ::);  // empty past the end: the count stays true
+  };
 
-  // stage 2: out[i][j][c] = sum_w wx[j][w] tmp[i][w][c]
-  T* dst = out + (size_t)roi * kOut * kOut * C + c0;
-  for (int pair = threadIdx.x; pair < kOut * kCt; pair += kThreads) {
-    const int i = pair / kCt, c = pair % kCt;
-    float acc[kOut];
+  // stage-1 unit (f32): RoI g1, bins 7 ih..+6, chunk column w1, channels 4
+  // c1..+3 (a warp shares g1 and ih); (bf16): warp -> RoI warp / 2, chunk
+  // columns 4 (warp % 2)..+3, all 16 channels. stage-2 unit (threads <
+  // 448): RoI g2, bin row i2, channels 4 c2..+3, all 14 j
+  const int g1 = tid / 64, ih = tid / 32 % 2, w1 = tid / 4 % kSepWc, c1 = tid % 4;
+  const int warp = tid / 32, lane = tid % 32, gw = warp / 2, wb = 4 * (warp % 2);
+  const bool s2_on = tid < kSepG * kOut * 4;
+  const int g2 = tid / (kOut * 4), i2 = tid / 4 % kOut, c2 = tid % 4;
+  for (int q = 0; q < kSepStages - 1; ++q) load_slab(q);
+  int q = 0;
+  for (int tl = 0; tl < my_tiles; ++tl) {
+    const int c0 = ((int)blockIdx.x + tl * (int)gridDim.x) * kSepCt;
+    float o[kOut][4];
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) acc[j] = 0.f;
-    for (int w = 0; w < wp; w += 4) {
-      float v[4];
+    for (int j = 0; j < kOut; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = w + e < W ? tmp[(i * W + w + e) * kCt + c] : 0.f;
+      for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
+    for (int wc = 0; wc < n_wc; ++wc) {
+      // f32: s1[i - 7 ih][c]; bf16: s1[n-tile 2 wl + half][mma accumulator]
+      float s1[kBf16 ? 8 : 7][4];
+#pragma unroll
+      for (int i = 0; i < (kBf16 ? 8 : 7); ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s1[i][c] = 0.f;
+      for (int hb = 0; hb < n_hb; ++hb, ++q) {
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(kSepStages - 2));
+        __syncthreads();  // slab q in place; every thread is past slab q - 1 (and the tables)
+        load_slab(q + kSepStages - 1);
+        const uint8_t* slab = ring + q % kSepStages * kSlabBytes;
+        const int h0 = hb * Cfg::kRows;
+        if constexpr (!kBf16) {
+          const float* fs = reinterpret_cast<const float*>(slab) + w1 * kSepCt + c1 * 4;
+          const float* wyp = reinterpret_cast<const float*>(wy) + (g1 * kOut + 7 * ih) * wy_ld + h0;
+#pragma unroll
+          for (int hh = 0; hh < Cfg::kRows; hh += 2) {  // two rows: fewer live registers
+            float4 f[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              f[e] = *reinterpret_cast<const float4*>(fs + (hh + e) * (Cfg::kRowBytes / 4));
+#pragma unroll
+            for (int i = 0; i < 7; ++i) {
+              const float2 y = *reinterpret_cast<const float2*>(wyp + i * wy_ld + hh);
+              const float ya[2] = {y.x, y.y};
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                s1[i][0] = fmaf(ya[e], f[e].x, s1[i][0]);
+                s1[i][1] = fmaf(ya[e], f[e].y, s1[i][1]);
+                s1[i][2] = fmaf(ya[e], f[e].z, s1[i][2]);
+                s1[i][3] = fmaf(ya[e], f[e].w, s1[i][3]);
+              }
+            }
+          }
+        } else {
+          // A: wy rows 0..15 of RoI gw at k = h0..h0+15 (matrix l / 8: rows
+          // 8 ((l / 8) % 2).., k 8 (l / 16)..)
+          uint32_t a0, a1, a2, a3;
+          const T* ap = wy + (gw * 16 + lane % 8 + 8 * (lane / 8 % 2)) * wy_ld + h0 + 8 * (lane / 16);
+          asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                       : "=r"(a0), "=r"(a1), "=r"(a2), "=r"(a3)
+                       : "r"(smem_addr(ap)));
+          // B of column wb + wl: rows h (l % 8 + 8 ((l / 8) % 2)), channels 8 (l / 16)..
+          const uint32_t bp = smem_addr(slab) + (lane % 8 + 8 * (lane / 8 % 2)) * Cfg::kRowBytes +
+                              (wb * kSepCt + 8 * (lane / 16)) * 2;
+#pragma unroll
+          for (int wl = 0; wl < 4; ++wl) {
+            uint32_t b0, b1, b2, b3;
+            asm volatile(
+                "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
+                : "r"(bp + wl * kSepCt * 2));
+            const uint32_t bb[2][2] = {{b0, b1}, {b2, b3}};
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              float (&d)[4] = s1[2 * wl + half];
+              asm volatile(
+                  "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+                  "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                  : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                  : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(bb[half][0]), "r"(bb[half][1]));
+            }
+          }
+        }
+      }
+      // the chunk's tmp (the last reads of the previous chunk's are behind
+      // this chunk's first slab barrier)
+      if constexpr (!kBf16) {
+#pragma unroll
+        for (int i = 0; i < 7; ++i)
+          *reinterpret_cast<float4*>(tmp + (g1 * kOut + 7 * ih + i) * kTmpStride + w1 * kSepCt +
+                                     c1 * 4) = make_float4(s1[i][0], s1[i][1], s1[i][2], s1[i][3]);
+      } else {
+        // accumulator e of n-tile (wl, half): bin row lane / 4 + 8 (e / 2),
+        // channel 8 half + 2 (lane % 4) + e % 2
+        const int gi = lane / 4, ch = 2 * (lane % 4);
+#pragma unroll
+        for (int wl = 0; wl < 4; ++wl)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float* tp = tmp + (gw * kOut + gi) * kTmpStride + (wb + wl) * kSepCt + 8 * half + ch;
+            const float(&d)[4] = s1[2 * wl + half];
+            *reinterpret_cast<float2*>(tp) = make_float2(d[0], d[1]);
+            if (gi + 8 < kOut) *reinterpret_cast<float2*>(tp + 8 * kTmpStride) = make_float2(d[2], d[3]);
+          }
+      }
+      __syncthreads();
+      if (s2_on) {
+        const int w0 = wc * kSepWc, wn = min(kSepWc, W - w0);
+        const float* tp = tmp + (g2 * kOut + i2) * kTmpStride + c2 * 4;
+        const float* xp = wx + g2 * kOut * wp + w0;
+        // past W both tmp (F zero-filled) and wx are zero
+        for (int w = 0; w < wn; w += 4) {
+          float4 t[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) t[e] = *reinterpret_cast<const float4*>(tp + (w + e) * kSepCt);
+#pragma unroll
+          for (int j = 0; j < kOut; ++j) {
+            const float4 x = *reinterpret_cast<const float4*>(xp + j * wp + w);
+            const float xa[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              o[j][0] = fmaf(xa[e], t[e].x, o[j][0]);
+              o[j][1] = fmaf(xa[e], t[e].y, o[j][1]);
+              o[j][2] = fmaf(xa[e], t[e].z, o[j][2]);
+              o[j][3] = fmaf(xa[e], t[e].w, o[j][3]);
+            }
+          }
+        }
+      }
+    }
+    if (s2_on && r0 + g2 < R) {
+      T* dst = out + (((size_t)b * R + r0 + g2) * kOut + i2) * kOut * C + c0 + c2 * 4;
 #pragma unroll
       for (int j = 0; j < kOut; ++j) {
-        const float4 t = *reinterpret_cast<const float4*>(wx + j * wp + w);
-        acc[j] = fmaf(t.x, v[0], acc[j]);
-        acc[j] = fmaf(t.y, v[1], acc[j]);
-        acc[j] = fmaf(t.z, v[2], acc[j]);
-        acc[j] = fmaf(t.w, v[3], acc[j]);
+        if constexpr (kBf16) {
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(o[j][0], o[j][1]);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(o[j][2], o[j][3]);
+          __stcs(reinterpret_cast<uint2*>(dst + (size_t)j * C),
+                 make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi)));
+        } else {
+          __stcs(reinterpret_cast<float4*>(dst + (size_t)j * C),
+                 make_float4(o[j][0], o[j][1], o[j][2], o[j][3]));
+        }
       }
     }
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) Io<T>::store(dst + (size_t)(i * kOut + j) * C + c, acc[j]);
   }
+  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // ------------------------------------------- T-roi 2, 3: the G @ F GEMM
@@ -269,7 +452,7 @@ struct Slots {
   float cval[2];                     // bf(x0 * 1e-6), widened
 };
 
-// Fill `sl` for RoIs r0 and r0 + 1 of image b with axis_table's arithmetic:
+// Fill `sl` for RoIs r0 and r0 + 1 of image b with bin_weight's arithmetic:
 // each (bin, sample) tap once, then each entry sums its bin's taps in
 // sample order. Entries y < fill_h and x < fill_w are written (0 past H or
 // W). `n` threads run it and meet at `sync()`, which also ends it.
@@ -324,14 +507,6 @@ struct RowAt {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(full ? 16 : 0));
-}
 
 // ---- f32 maps: SIMT, true f32 FMAs
 constexpr int kF32Threads = 256;
@@ -467,36 +642,6 @@ struct Bf16Shared {
 };
 constexpr int kBf16Smem = kStages * kStageBytes + (int)sizeof(Bf16Shared) + 1024;
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-// wait for the phase of `bar` with this parity to complete; a wait of
-// more than 2^35 cycles (about 19 s) traps rather than hang the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  long long start = 0;
-  for (bool first = true;; first = false) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (first)
-      start = clock64();
-    else if (clock64() - start > (1ll << 35))
-      __trap();
-  }
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
 // the box of (channel c, x, y, image b) of the (C, W, H, B) map into dst
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c,
                                          int x, int y, int b) {
@@ -553,14 +698,6 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[128], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// every wgmma this warpgroup committed has completed
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
 // the accumulators are not read or written across this point
 __device__ __forceinline__ void fence_acc(float (&d)[128]) {
 #pragma unroll
@@ -791,28 +928,6 @@ int launch_gemm_f32(const float* feat, const float* boxes, float* out, int B, in
   return (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled from the driver, found at run time so that the
-// library links against the runtime alone
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 template <bool kConst, typename OutT>
 int launch_gemm_bf16(const void* feat, const float* boxes, OutT* out, int B, int R, int H, int W,
@@ -858,28 +973,36 @@ int launch_gemm_bf16(const void* feat, const float* boxes, OutT* out, int B, int
 // and boxes (B, R, 4) f32, contiguous, on one device, 16-byte aligned;
 // out (B, R, 14, 14, C) in the dtype each entry writes.
 
-// T-roi 1: out in the map's dtype; C % 32 == 0, W <= 112.
+// T-roi 1: out in the map's dtype; C % 32 == 0, W <= 112 (the wrapper's
+// contract since the first version, whose intermediate grew with W).
 extern "C" int tspn_roi_sep_fused_launch(const void* feat, const void* boxes, void* out,
                                          int B, int R, int H, int W, int C, int out_size,
                                          int s, int bf16, void* stream) {
-  if (bad_shape(B, R, H, W, C, out_size, s) || C % kCt) return (int)cudaErrorInvalidValue;
-  const int hp = (H + 3) / 4 * 4, wp = (W + 3) / 4 * 4;
-  const int smem = (kOut * hp + kOut * wp + kOut * W * kCt) * 4;
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(C / kCt), (unsigned)(B * R));
+  if (bad_shape(B, R, H, W, C, out_size, s) || C % 32 || W > 112) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  // channel-tile shares: about four waves of one block per SM, each block
+  // building its RoIs' tables once
+  const int groups = B * ((R + kSepG - 1) / kSepG), n_ct = C / kSepCt;
+  const int shares = max(1, min(n_ct, (4 * sms + groups - 1) / groups));
+  const dim3 grid((unsigned)shares, (unsigned)((R + kSepG - 1) / kSepG), (unsigned)B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t attr;
   if (bf16) {
-    attr = cudaFuncSetAttribute(roi_sep_fused_kernel<__nv_bfloat16>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (attr != cudaSuccess) return (int)attr;
-    roi_sep_fused_kernel<__nv_bfloat16><<<grid, kThreads, smem, st>>>(
+    const int smem = sep_smem_bytes<__nv_bfloat16>(H, W);
+    e = cudaFuncSetAttribute(roi_sep_fused_kernel<__nv_bfloat16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    roi_sep_fused_kernel<__nv_bfloat16><<<grid, kSepThreads, smem, st>>>(
         (const __nv_bfloat16*)feat, (const float*)boxes, (__nv_bfloat16*)out, R, H, W, C, s);
   } else {
-    attr = cudaFuncSetAttribute(roi_sep_fused_kernel<float>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (attr != cudaSuccess) return (int)attr;
-    roi_sep_fused_kernel<float><<<grid, kThreads, smem, st>>>(
+    const int smem = sep_smem_bytes<float>(H, W);
+    e = cudaFuncSetAttribute(roi_sep_fused_kernel<float>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    roi_sep_fused_kernel<float><<<grid, kSepThreads, smem, st>>>(
         (const float*)feat, (const float*)boxes, (float*)out, R, H, W, C, s);
   }
   return (int)cudaGetLastError();

@@ -4,7 +4,8 @@ The sources under ``tspn_tpu_torch/csrc/`` expose plain C entry points,
 so they compile with ``nvcc`` alone in seconds, without PyTorch's
 headers. The library is built at first use into
 ``build/tspn_tpu_torch/`` at the repository root, named by a hash of its
-source and flags, and rebuilt whenever that hash changes. Nothing here
+source, the directory's shared headers (``*.cuh``) and the flags, and
+rebuilt whenever that hash changes. Nothing here
 runs at import time: the CPU test suite imports every module.
 """
 
@@ -45,8 +46,9 @@ def library(name: str) -> ctypes.CDLL:
     if name in _loaded:
         return _loaded[name]
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     so = BUILD_DIR / f"lib{name}_{digest}.so"
     if not so.exists():
@@ -91,8 +93,8 @@ def q8t_library() -> ctypes.CDLL:
     return _bound("q8s", "tspn_q8t_launch", 6, 5)
 
 
-def q8_probe_library() -> ctypes.CDLL:
-    return _bound("q8s", "tspn_q8_probe_launch", 3, 4)
+def pair_probe_library() -> ctypes.CDLL:
+    return _bound("pair_probe", "tspn_pair_probe_launch", 3, 8)
 
 
 def q8_bf16_library() -> ctypes.CDLL:

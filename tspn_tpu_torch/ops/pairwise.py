@@ -21,10 +21,11 @@ Counterpart of ``tspn_tpu/ops/pairwise.py``. Two halves:
   add in its epilogue (``csrc/q8f_fused.cu``), which
   ``factored_classify_q8_fused`` runs after a q8s tracklet pass.
   K1's variants, in ``csrc/q8s.cu`` beside it: ``normalize_classify_q8i8``
-  (block scales computed in the kernel), ``normalize_classify_q8t``
-  (transposed operands) and ``pair_probe`` (the raw int32 product of
-  ``tools/bench_pair_kernels.py``); ``normalize_classify_q8`` is the int8
-  x bf16 scorer (``csrc/q8_bf16.cu``).
+  (block scales computed in the kernel) and ``normalize_classify_q8t``
+  (transposed operands); ``pair_probe`` is the raw int32 product of
+  ``tools/bench_pair_kernels.py`` (``csrc/pair_probe.cu``, wgmma, planned
+  by ``probe_plan``); ``normalize_classify_q8`` is the int8 x bf16 scorer
+  (``csrc/q8_bf16.cu``).
 """
 
 from __future__ import annotations
@@ -640,6 +641,9 @@ def normalize_classify_q8s(q, scales, qw_t, sw, b, geom) -> torch.Tensor:
 # ----------------------------------------- K1's variants, and the bf16 scorer
 PROBE_MODES = ("stream", "onedot", "blocks_noscale")
 PROBE_STREAM_ROWS = 32  # the rows that the probe's "stream" mode computes
+# csrc/pair_probe.cu's tile: 128 pairs x N output rows (160, or 32 in stream
+# mode), D in chunks of 128 bytes
+PROBE_TILE_PAIRS, PROBE_CHUNK, PROBE_N = 128, 128, 160
 
 
 def q8_block_scales(q: torch.Tensor, head_scale: torch.Tensor, geom) -> torch.Tensor:
@@ -759,6 +763,38 @@ def pair_probe_plain(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tenso
     return out
 
 
+class ProbePlan(NamedTuple):
+    """How ``csrc/pair_probe.cu`` runs one call (``probe_plan``)."""
+    live: int        # output rows computed (the rest are zero)
+    n: int           # rows per tile (wgmma N)
+    tiles: int       # pair tiles x row blocks
+    chunks: int      # 128-byte chunks of D (the last zero-padded)
+    split: int       # D shares per tile, summed by atomics when > 1
+    staging: str     # how x reaches shared memory: "tma", "word" or "shift"
+    grid: int        # persistent blocks
+
+    def shares(self) -> list:
+        """The chunk range [lo, hi) of each D share, as the kernel cuts them."""
+        return [(k * self.chunks // self.split, (k + 1) * self.chunks // self.split)
+                for k in range(self.split)]
+
+
+def probe_plan(p: int, r: int, d: int, mode: str, sms: int) -> ProbePlan:
+    """The probe kernel's plan for x (D, P), w (R, D) on a card of ``sms``
+    SMs: ``stream`` runs 32-row tiles, the others 160; TMA stages x when
+    its rows are a multiple of 16 bytes apart, else the kernel's own
+    aligned 4-byte loads (shifted when P % 4 != 0); with fewer tiles than
+    SMs, D is split in whole chunks so that the tiles' shares come near
+    the SM count."""
+    live = _probe_rows(r, mode)
+    n = PROBE_STREAM_ROWS if mode == "stream" else PROBE_N
+    tiles = -(-p // PROBE_TILE_PAIRS) * -(-live // n)
+    chunks = -(-d // PROBE_CHUNK)
+    split = max(1, min(chunks, sms // tiles))
+    staging = "tma" if p % 16 == 0 else "word" if p % 4 == 0 else "shift"
+    return ProbePlan(live, n, tiles, chunks, split, staging, min(tiles * split, sms))
+
+
 def _q8i8_cuda(q, head_scale, qw_t, sw, b, geom) -> torch.Tensor:
     p, d = q.shape
     r = qw_t.shape[0]
@@ -807,15 +843,20 @@ def _q8t_cuda(xt, scales_t, qw_t, sw, b, geom) -> torch.Tensor:
 def _pair_probe_cuda(x, w, mode) -> torch.Tensor:
     d, p = x.shape
     r = w.shape[0]
-    live = _probe_rows(r, mode)
+    _probe_rows(r, mode)
     _require("q8_probe", (x, w), (torch.int8, torch.int8), ((d, p), (r, d)),
              aligned=(x, w))
     if d % 64 or d >= 1 << 17:
         raise ValueError(f"q8_probe: width {d} is not a multiple of 64 below 2^17")
-    out = torch.empty((r, p), dtype=torch.int32, device=x.device)
-    if p and r:
-        _launch("q8_probe", "q8_probe_library", "tspn_q8_probe_launch", x.device,
-                (x.data_ptr(), w.data_ptr(), out.data_ptr(), p, r, d, live))
+    if not (p and r):
+        return torch.zeros((r, p), dtype=torch.int32, device=x.device)
+    plan = probe_plan(p, r, d, mode, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    # split shares add into a zeroed output
+    out = (torch.zeros if plan.split > 1 else torch.empty)((r, p), dtype=torch.int32,
+                                                             device=x.device)
+    _launch("q8_probe", "pair_probe_library", "tspn_pair_probe_launch", x.device,
+            (x.data_ptr(), w.data_ptr(), out.data_ptr(), p, r, d, plan.live, plan.n,
+             plan.split, int(plan.staging != "tma"), plan.grid))
     return out
 
 

@@ -38,6 +38,7 @@ from tspn_tpu_torch.ops.pairwise import _dispatch, _launch
 # launches made by the dispatches on CUDA tensors
 LAUNCHES = {"roi_sep_fused": 0, "roi_selector": 0, "roi_constg": 0}
 OUT, RATIO = 14, 2  # the C4 head's RoIAlign (the tools' out and s)
+SEP_ROI_TILE, SEP_CHANNEL_TILE = 8, 16  # a block of csrc/roi_probes.cu's fused kernel
 
 
 def reset_launches() -> None:
@@ -133,7 +134,7 @@ def _sep_fused_cuda(features, boxes):
     _check("roi_sep_fused", features, boxes, 32)
     b, h, w, c = features.shape
     if w > 112:
-        raise ValueError("roi_sep_fused: W > 112 does not fit the intermediate")
+        raise ValueError(f"roi_sep_fused: takes W <= 112, got {w}")
     r = boxes.shape[1]
     out = torch.empty((b, r, OUT, OUT, c), dtype=features.dtype, device=features.device)
     if r:

@@ -10,7 +10,8 @@ over the whole batch (RoI r of image b pools image b):
   sep       the shipped separable two-einsum (``roi_align_separable``), plain torch
   sep_b16t  the same with the intermediate cast to bf16, plain torch
   fused     T-roi 1 (``ops/roi_probes.py::roi_sep_fused``, ``csrc/roi_probes.cu``):
-            the (14, W, 32-channel) intermediate of one RoI kept in shared memory
+            8 RoIs a block share each load of the map; their intermediate is
+            kept in shared memory 8 columns x 16 channels at a time
 
 Inputs are the JAX tool's ``RandomState(0)`` draws (``roi_common.inputs``).
 Before timing, ``fused`` is held to its plain version and, in f32, to
@@ -21,11 +22,11 @@ quartiles of 5 runs of 20 calls), each beside its bound (``timing.bound``:
 bytes, or operations at the peak of their type: the fused form's stage 1
 at the map's type, stage 2 in f32).
 
-Not kept, with no Hopper counterpart: ``--roi-tile`` (the TPU kernel's
-8-RoI tile; here a block takes one RoI and 32 channels, so the
-intermediate fits an SM), ``--iters`` and ``--rounds`` (the interleaved
-timer's knobs; ``timing.times_ms`` fixes its own), and the tag/carry
-chain against a remote runtime that memoizes calls.
+Not kept: ``--roi-tile`` (the TPU kernel's RoI tile; the card's kernel
+fixes its own, reported as ``roi_tile`` and ``channel_tile``), ``--iters``
+and ``--rounds`` (the interleaved timer's knobs; ``timing.times_ms`` fixes
+its own), and the tag/carry chain against a remote runtime that memoizes
+calls.
 
 ``--device cpu`` runs the plain versions on the host clock (use small
 ``--rois``/``--hw``/``--channels`` there). Prints one JSON line;
@@ -78,7 +79,8 @@ def main(argv=None) -> dict:
     ops = {"sep": {kd: s1 + s2}, "sep_b16t": rc.ops_by_kind((kd, s1), ("bf16", s2)),
            "fused": rc.ops_by_kind((kd, s1), ("f32", s2))}
     res = {"metric": "roialign_fused", "dtype": args.dtype, "batch": b, "rois": r,
-           "hw": hw, "channels": c, "roi_tile": 1, "channel_tile": 32, "device": name,
+           "hw": hw, "channels": c, "roi_tile": rp.SEP_ROI_TILE,
+           "channel_tile": rp.SEP_CHANNEL_TILE, "device": name,
            "parity": parity, "worst_err_over_bound": gates}
     for k, fn in legs.items():
         t = rc.time_leg(fn, dev, (feats, boxes), outs[k], ops[k])
