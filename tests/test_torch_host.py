@@ -2,8 +2,10 @@
 originals on the same inputs.
 
 * Config (tspn_tpu_torch/config): the defaults, and the merge of every
-  configs/*.yaml, equal key for key, dumps included; merge_from_list and
-  the type coercion behave alike.
+  tracked configs/*.yaml and of five saved-run configs (written into
+  tmp_path by the writer training uses, as the git-ignored
+  configs/*_config.yaml of a working tree are), equal key for key, dumps
+  included; merge_from_list and the type coercion behave alike.
 * Paths (data/segments.py): the artifact root, file names, segment
   signatures and the 30/15 tiling.
 * Annotations (data/annotations.py) on tests/fixtures/golden_vidvrd:
@@ -46,7 +48,45 @@ from tspn_tpu_torch.runtime import logging_utils as tlog
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "golden_vidvrd")
-CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml")))
+# the tracked configs: training writes configs/<name>_config.yaml, which
+# git ignores, so a working tree may hold more than a checkout
+CONFIGS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(REPO, "configs", "*.yaml"))
+                 if not p.endswith("_config.yaml"))
+# saved-run configs, as training's cfg.dump_to_file writes them: the
+# tracked base and the overrides of the runs (README recipe, the tests'
+# plateau and resume runs, the PPN recipe)
+SAVED_RUNS = {
+    "baseline_config.yaml": ("baseline.yaml", [
+        "SOLVER.MAX_ITER", "150", "SOLVER.SCHEDULER.MILESTONES", "[80, 120]",
+        "SOLVER.SCHEDULER.WARMUP_ITERS", "30", "PREDICT.PREDICATE_NUM", "8",
+        "ETC.SAVE_FREQ", "150", "ETC.MODEL_DUMP_FILE", "baseline_weights_iter_150.pt"]),
+    "baseline_vidor_config.yaml": ("vidor.yaml", [
+        "SOLVER.MAX_ITER", "60", "SOLVER.SCHEDULER.MILESTONES", "[40, 50]",
+        "SOLVER.SCHEDULER.WARMUP_ITERS", "10", "DATASET.TEST_BATCH_SIZE", "4",
+        "PREDICT.PREDICATE_NUM", "16", "ETC.DISPLAY_FREQ", "30", "ETC.SAVE_FREQ", "60",
+        "ETC.MODEL_DUMP_FILE", "baseline_vidor_weights_iter_60.pt",
+        "BUCKETS.SEGMENTS_PER_STEP", "4"]),
+    "plateau_test_config.yaml": ("baseline.yaml", [
+        "MODEL.NAME", "plateau_test", "SOLVER.MAX_ITER", "6",
+        "SOLVER.SCHEDULER.TYPE", "plateau", "DATASET.TRAIN_BATCH_SIZE", "1024",
+        "DATASET.LOGIT_ONLY", "False", "PREDICT.PREDICATE_NUM", "19",
+        "RELPN.PPN.POSITIVE_FRACTION", "0.5", "ETC.DISPLAY_FREQ", "100",
+        "ETC.SAVE_FREQ", "100", "ETC.MODEL_DUMP_FILE", "plateau_test_weights_iter_6.pt",
+        "BUCKETS.SEGMENTS_PER_STEP", "2"]),
+    "resume_test_config.yaml": ("baseline.yaml", [
+        "MODEL.NAME", "resume_test", "SOLVER.MAX_ITER", "10",
+        "SOLVER.SCHEDULER.MILESTONES", "[6, 8]", "SOLVER.SCHEDULER.WARMUP_ITERS", "2",
+        "DATASET.TRAIN_BATCH_SIZE", "1024", "DATASET.LOGIT_ONLY", "False",
+        "PREDICT.PREDICATE_NUM", "19", "RELPN.PPN.POSITIVE_FRACTION", "0.5",
+        "ETC.DISPLAY_FREQ", "100", "ETC.SAVE_FREQ", "5",
+        "ETC.MODEL_DUMP_FILE", "resume_test_weights_iter_10.pt", "BUCKETS.SEGMENTS_PER_STEP", "2"]),
+    "tspn_config.yaml": ("tspn.yaml", [
+        "SOLVER.MAX_ITER", "80", "SOLVER.SCHEDULER.MILESTONES", "[50, 70]",
+        "SOLVER.SCHEDULER.WARMUP_ITERS", "15", "DATASET.TEST_BATCH_SIZE", "4",
+        "PREDICT.PREDICATE_NUM", "6", "RELPN.USE_DPN", "False", "ETC.DISPLAY_FREQ", "40",
+        "ETC.SAVE_FREQ", "80", "ETC.MODEL_DUMP_FILE", "tspn_weights_iter_80.pt",
+        "BUCKETS.SEGMENTS_PER_STEP", "4"]),
+}
 
 
 @pytest.fixture
@@ -69,8 +109,16 @@ def test_config_defaults_equal():
     assert t.dump() == j.dump()
 
 
-@pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
-def test_config_merge_equal(path):
+@pytest.mark.parametrize("name", sorted(CONFIGS + list(SAVED_RUNS)))
+def test_config_merge_equal(name, tmp_path):
+    path = os.path.join(REPO, "configs", name)
+    if name in SAVED_RUNS:  # a saved-run config, written as training writes it
+        base, opts = SAVED_RUNS[name]
+        cfg = jconfig.get_default_config()
+        cfg.merge_from_file(os.path.join(REPO, "configs", base))
+        cfg.merge_from_list(opts)
+        path = str(tmp_path / name)
+        cfg.dump_to_file(path)
     j, t = jconfig.get_default_config(), tconfig.get_default_config()
     j.merge_from_file(path)
     t.merge_from_file(path)
