@@ -9,8 +9,17 @@ pass for inference, and the training stream (epoch-seeded shuffle,
 end-of-epoch flush padded by repetition). Those modules import h5py at
 their top. ``tests/test_torch_predict.py`` and
 ``tests/test_torch_train.py`` hold this loader's batches equal, key by
-key, to the JAX BucketedLoader's. There is no prefetch thread: batches
-are assembled when the consumer asks for them.
+key, to the JAX BucketedLoader's. As there, a producer thread assembles
+up to ``prefetch`` batches ahead of the consumer (``prefetch=0``
+assembles each batch when the consumer asks for it).
+
+For a CUDA ``device`` the leaves are pinned host tensors
+(``pin_memory=True``), so that their copies to the card can run
+asynchronously (``leaf_to_device(..., non_blocking=True)``). PyTorch's
+pinned-memory cache is their ring: a batch's tensors go back to it when
+the batch is dropped, and it hands a block out again only after the
+copies that read it, which it records, have completed. On the CPU the
+leaves are numpy arrays and nothing is pinned.
 
 Float feature leaves are f32 numpy arrays, or, for a model that computes
 in bf16 (``feats_dtype=torch.bfloat16``, the JAX loader's
@@ -23,6 +32,8 @@ either kind.
 
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -63,9 +74,17 @@ def pick_bucket(num_tracklets: int, buckets: Sequence[int]) -> int:
     return max(buckets)
 
 
+def _zeros(shape, dtype, pin: bool):
+    """A zeroed leaf: a numpy array, or with ``pin`` a pinned CPU tensor."""
+    if not pin:
+        return np.zeros(shape, dtype)
+    return torch.zeros(shape, dtype=torch.from_numpy(np.zeros(0, dtype)).dtype,
+                       pin_memory=True)
+
+
 def batch_buffers(
     template, batch_size: int, n_bucket: int, num_objects: int, feature_dim: int,
-    feats_dtype=torch.float32,
+    feats_dtype=torch.float32, pin: bool = False,
 ) -> Dict[str, np.ndarray]:
     """Zeroed batch leaves (P_max = n_bucket * (n_bucket - 1)):
     feats (B, P_max, D), int8 for q8 and q8f records, else f32 (or, with
@@ -74,44 +93,49 @@ def batch_buffers(
     labels (B, P_max, R) f32 when the template carries labels;
     pair_mask (B, P_max); cls_logits (B, n_bucket, C); track_mask
     (B, n_bucket); feat_scale (B, P_max, 16) for q8 and q8f records;
-    trk_feats / trk_scales for q8f records."""
+    trk_feats / trk_scales for q8f records. With ``pin`` every leaf is a
+    pinned CPU tensor of that dtype."""
     p_max = n_bucket * (n_bucket - 1)
     shape = (batch_size, p_max, feature_dim)
     if template.q8_scales is not None:
-        feats = np.zeros(shape, np.int8)
-    elif feats_dtype == torch.bfloat16:  # numpy's zeroed pages seen as bf16
-        feats = torch.from_numpy(np.zeros(shape, np.int16)).view(torch.bfloat16)
+        feats = _zeros(shape, np.int8, pin)
+    elif feats_dtype == torch.bfloat16:
+        feats = (torch.zeros(shape, dtype=torch.bfloat16, pin_memory=True) if pin
+                 # numpy's zeroed pages seen as bf16
+                 else torch.from_numpy(np.zeros(shape, np.int16)).view(torch.bfloat16))
     else:
-        feats = np.zeros(shape, np.float32)
+        feats = _zeros(shape, np.float32, pin)
     bufs = {
         "feats": feats,
-        "pairs": np.zeros((batch_size, p_max, 2), np.int32),
-        "pair_mask": np.zeros((batch_size, p_max), np.float32),
-        "cls_logits": np.zeros((batch_size, n_bucket, num_objects), np.float32),
-        "track_mask": np.zeros((batch_size, n_bucket), np.float32),
+        "pairs": _zeros((batch_size, p_max, 2), np.int32, pin),
+        "pair_mask": _zeros((batch_size, p_max), np.float32, pin),
+        "cls_logits": _zeros((batch_size, n_bucket, num_objects), np.float32, pin),
+        "track_mask": _zeros((batch_size, n_bucket), np.float32, pin),
     }
     if template.labels is not None:
-        bufs["labels"] = np.zeros(
-            (batch_size, p_max, template.labels.shape[1]), np.float32
-        )
+        bufs["labels"] = _zeros((batch_size, p_max, template.labels.shape[1]), np.float32, pin)
     if template.q8_scales is not None:
-        bufs["feat_scale"] = np.zeros((batch_size, p_max, 16), np.float32)
+        bufs["feat_scale"] = _zeros((batch_size, p_max, 16), np.float32, pin)
     if template.trk_feats is not None:
-        bufs["trk_feats"] = np.zeros(
-            (batch_size, n_bucket, template.trk_feats.shape[1]), np.int8
-        )
-        bufs["trk_scales"] = np.zeros((batch_size, n_bucket, 16), np.float32)
+        bufs["trk_feats"] = _zeros((batch_size, n_bucket, template.trk_feats.shape[1]),
+                                   np.int8, pin)
+        bufs["trk_scales"] = _zeros((batch_size, n_bucket, 16), np.float32, pin)
     return bufs
 
 
-def leaf_to_device(leaf, device) -> torch.Tensor:
-    """A batch leaf (numpy array or CPU tensor) as a tensor on ``device``."""
-    return torch.as_tensor(leaf).to(device)
+def leaf_to_device(leaf, device, non_blocking: bool = False) -> torch.Tensor:
+    """A batch leaf (numpy array or CPU tensor) as a tensor on ``device``;
+    ``non_blocking`` copies a pinned leaf asynchronously on the current
+    stream."""
+    return torch.as_tensor(leaf).to(device, non_blocking=non_blocking)
 
 
 def fill_padded(bufs: Dict[str, np.ndarray], b: int, record, n_bucket: int) -> None:
     """Write one record into batch slot ``b``; pairs that reach past the
     bucket's capacity are dropped."""
+    # numpy views of pinned leaves; a bf16 leaf stays a tensor
+    bufs = {k: v.numpy() if isinstance(v, torch.Tensor) and v.dtype != torch.bfloat16 else v
+            for k, v in bufs.items()}
     n = min(record.num_proposals, n_bucket)
     p_max = n_bucket * (n_bucket - 1)
     keep = (record.pairs[:, 0] < n) & (record.pairs[:, 1] < n)
@@ -159,6 +183,11 @@ class BucketedLoader:
     ``dataset`` needs ``__len__``, ``num_proposals_of(i)`` and
     ``load_segment(i, with_labels)``. ``feats_dtype`` torch.bfloat16 turns
     a float ``feats`` leaf into bf16 (int8 leaves stay int8).
+
+    ``prefetch`` > 0 assembles batches on a producer thread, at most that
+    many ahead: an exception there is raised in the consumer, and a
+    consumer that stops early stops the thread. A CUDA ``device`` makes
+    the leaves pinned tensors (see the module docstring).
     """
 
     def __init__(
@@ -166,6 +195,7 @@ class BucketedLoader:
         feature_dim: int, num_objects: int, *, max_iter: Optional[int] = None,
         shuffle: bool = False, seed: int = 0, skip_batches: int = 0,
         include_labels: bool = False, feats_dtype=torch.float32,
+        prefetch: int = 2, device=None,
     ):
         if feats_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"feature leaves in {feats_dtype}: float32 or bfloat16")
@@ -180,6 +210,8 @@ class BucketedLoader:
         self.seed = seed
         self.skip_batches = int(skip_batches)
         self.include_labels = include_labels
+        self.prefetch = int(prefetch)
+        self.pin = device is not None and torch.device(device).type == "cuda"
         self._bucket_of = [
             pick_bucket(dataset.num_proposals_of(i), self.buckets)
             for i in range(len(dataset))
@@ -216,22 +248,78 @@ class BucketedLoader:
             if self.max_iter is None:
                 return
 
-    def __iter__(self):
+    def _items(self) -> Iterator[Tuple[int, List[int]]]:
+        """The (bucket, indices) of the batches an iteration yields: the
+        skipped ones drawn but not assembled, then up to ``max_iter``."""
         groups = self._groups()
         for _ in range(self.skip_batches):
             if next(groups, None) is None:
                 return
-        for count, (bucket, idxs) in enumerate(groups, start=self.skip_batches):
+        for count, item in enumerate(groups, start=self.skip_batches):
             if self.max_iter is not None and count >= self.max_iter:
                 return
-            records = [
-                self.dataset.load_segment(i, with_labels=self.include_labels)
-                for i in idxs
-            ]
-            bufs = batch_buffers(
-                records[0], len(records), bucket, self.num_objects, self.feature_dim,
-                self.feats_dtype,
-            )
-            for b, r in enumerate(records):
-                fill_padded(bufs, b, r, bucket)
-            yield bucket, bufs, [r.index for r in records], records
+            yield item
+
+    def _assemble(self, bucket: int, idxs: List[int]) -> tuple:
+        records = [
+            self.dataset.load_segment(i, with_labels=self.include_labels)
+            for i in idxs
+        ]
+        bufs = batch_buffers(
+            records[0], len(records), bucket, self.num_objects, self.feature_dim,
+            self.feats_dtype, self.pin,
+        )
+        for b, r in enumerate(records):
+            fill_padded(bufs, b, r, bucket)
+        return bucket, bufs, [r.index for r in records], records
+
+    def __iter__(self):
+        if self.prefetch <= 0:
+            for bucket, idxs in self._items():
+                yield self._assemble(bucket, idxs)
+            return
+        # the JAX loader's producer (tspn_tpu/data/loader.py:153-209): a
+        # bounded queue, a stop event, errors re-raised in the consumer
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        done = object()
+
+        def put(item) -> bool:
+            # never block for good: a consumer that stopped early leaves
+            # the queue full and only sets `stop`
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.5)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for bucket, idxs in self._items():
+                    if stop.is_set() or not put(self._assemble(bucket, idxs)):
+                        return
+            except BaseException as exc:  # surfaces in the consumer
+                put(_Failure(exc))
+                return
+            put(done)
+
+        threading.Thread(target=producer, name="BucketedLoader-prefetch", daemon=True).start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    return
+                if isinstance(item, _Failure):
+                    raise item.exc
+                yield item
+        finally:
+            stop.set()
+
+
+@dataclass
+class _Failure:
+    """An exception of the producer thread, on its way to the consumer."""
+
+    exc: BaseException

@@ -27,8 +27,15 @@ probabilities are multiplied by the pair's PPN probability. The top-k
 then takes the finite rows only and maps its pair indices back through
 the selected rows.
 
-The readback is synchronous: each batch is scored and read back before
-the next is assembled.
+The loop is pipelined as the JAX package's: ``infer.dispatch`` queues a
+batch's work on the card and returns at once, and its readback waits until
+``pipeline_depth`` more batches are in flight, so batch i's triplets are
+assembled on the host while batch i + 1 is on the card (depth 0 reads each
+batch back before the next is assembled). On the card the loader fills
+pinned host buffers, the host-to-device copies run on a copy stream that
+the compute stream waits for by an event, and the top-k selection comes
+back into pinned buffers, completed by an event. On the CPU the same code
+runs synchronously.
 
 Output contract, as in the JAX package: {(vid, fstart, fend):
 (predictions, iou, trackid)} with predictions = [(score, (s_cls, pred,
@@ -38,7 +45,8 @@ o_cls), (s_tid, o_tid)), ...].
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Sequence, Tuple
+from collections import deque
+from typing import Callable, Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -219,13 +227,57 @@ def dataset_mode(dataset) -> str:
     return "f32"
 
 
+class Infer:
+    """Batched inference split in two halves: ``dispatch(batch)`` queues a
+    batch's copies and scoring and returns a handle, ``readback(handle)``
+    waits for it -> (scores, pair_idx, pred_idx, valid) numpy arrays, each
+    (B, K). ``infer(batch)`` does both. On a CUDA device the copies run on
+    a copy stream, ordered to the compute stream by an event, and the
+    results come back into pinned buffers, completed by an event; on the
+    CPU ``dispatch`` computes the results."""
+
+    def __init__(self, compute: Callable, keys: tuple, device: torch.device):
+        self.compute, self.keys, self.device = compute, keys, device
+        self.copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    @torch.no_grad()
+    def dispatch(self, batch):
+        if self.copy_stream is None:
+            dev = {k: leaf_to_device(batch[k], self.device) for k in self.keys}
+            return tuple(t.numpy() for t in self.compute(dev))
+        stream = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self.copy_stream):
+            dev = {k: leaf_to_device(batch[k], self.device, non_blocking=True)
+                   for k in self.keys}
+        stream.wait_stream(self.copy_stream)
+        for t in dev.values():  # allocated on the copy stream, used on this one
+            t.record_stream(stream)
+        outs = self.compute(dev)
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs)
+        for h, t in zip(host, outs):
+            h.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+        return host, done
+
+    def readback(self, handle):
+        if self.copy_stream is None:
+            return handle
+        host, done = handle
+        done.synchronize()
+        return tuple(h.numpy() for h in host)
+
+    def __call__(self, batch):
+        return self.readback(self.dispatch(batch))
+
+
 def build_infer(model, mode: str, layout: FeatureLayout, topk_per_pair: int,
                 topk_per_seg: int, device, plain: bool = False,
-                num_pair_proposals: int = 0, fuse_ppn_score: bool = False) -> Callable:
-    """-> infer(batch of numpy leaves) -> (scores, pair_idx, pred_idx,
-    valid) numpy arrays, each (B, K). ``plain=True`` scores with the plain
-    PyTorch version of every kernel, on any device. ``num_pair_proposals``
-    > 0 prunes with the model's PPN head (see the module docstring)."""
+                num_pair_proposals: int = 0, fuse_ppn_score: bool = False) -> Infer:
+    """-> an ``Infer`` over batches of host leaves: the scorer of ``mode``
+    and the two-stage top-k. ``plain=True`` scores with the plain PyTorch
+    version of every kernel, on any device. ``num_pair_proposals`` > 0
+    prunes with the model's PPN head (see the module docstring)."""
     device = torch.device(device)
     if num_pair_proposals > 0 and not getattr(model, "use_ppn", False):
         raise ValueError("PPN pruning needs a model built with the PPN head")
@@ -241,13 +293,10 @@ def build_infer(model, mode: str, layout: FeatureLayout, topk_per_pair: int,
     if num_pair_proposals > 0:
         keys = tuple(dict.fromkeys(keys + _PRUNE_KEYS))
 
-    @torch.no_grad()
-    def infer(batch):
-        dev = {k: leaf_to_device(batch[k], device) for k in keys}
+    def compute(dev):
         if num_pair_proposals <= 0:
             rel_prob = torch.sigmoid(score(dev))
-            out = select_topk(rel_prob, dev["pair_mask"], topk_per_pair, topk_per_seg)
-            return tuple(t.cpu().numpy() for t in out)
+            return select_topk(rel_prob, dev["pair_mask"], topk_per_pair, topk_per_seg)
         pair_logits = model.ppn_head(dev["cls_logits"])
         top_rows, keep, ppn_scores = rank_pairs(
             pair_logits, dev["pairs"], dev["pair_mask"], num_pair_proposals
@@ -259,9 +308,19 @@ def build_infer(model, mode: str, layout: FeatureLayout, topk_per_pair: int,
             rel_prob, keep, topk_per_pair, topk_per_seg
         )
         pair_idx = torch.gather(top_rows, 1, pair_idx.long()).to(torch.int32)
-        return tuple(t.cpu().numpy() for t in (scores, pair_idx, pred_idx, valid))
+        return scores, pair_idx, pred_idx, valid
 
-    return infer
+    return Infer(compute, keys, device)
+
+
+class _PendingSeg(NamedTuple):
+    """The fields of a segment that the readback reads: holding these, not
+    whole records, keeps in-flight batches from retaining feature rows."""
+
+    num_proposals: int
+    cls_logits: np.ndarray
+    iou: np.ndarray
+    trackid: np.ndarray
 
 
 def predict_segments(
@@ -269,7 +328,8 @@ def predict_segments(
     batch_size: int = 1, topk_per_pair: int = 20, topk_per_seg: int = 200,
     num_objects: int = 35, feature_dim: int = None, logger=None,
     plain: bool = False, num_pair_proposals: int = 0,
-    fuse_ppn_score: bool = False,
+    fuse_ppn_score: bool = False, batch_hook: Callable = None,
+    pipeline_depth: int = 2,
 ) -> Dict[Tuple[str, int, int], tuple]:
     """Relation prediction over every segment of ``dataset`` (a per-file
     SegmentDataset, a consolidated store, or in-memory records); the
@@ -277,8 +337,12 @@ def predict_segments(
     PPN head run ``model`` itself, which must then be on ``device``; the
     int8 scorers quantize its weights onto ``device``.
     ``num_pair_proposals`` > 0 scores only each segment's top PPN pairs.
-    Segments with at most one proposal yield no entry. -> {(vid, fstart,
-    fend): (predictions, iou, trackid)}."""
+    ``batch_hook(batch) -> batch`` runs on each batch before its dispatch.
+    ``pipeline_depth`` bounds how many batches are in flight before a
+    blocking readback (0: each batch is read back before the next is
+    assembled); every depth gives the same result. Segments with at most
+    one proposal yield no entry. -> {(vid, fstart, fend): (predictions,
+    iou, trackid)}."""
     mode = dataset_mode(dataset)
     layout = FeatureLayout.for_objects(num_objects)
     if feature_dim is None:
@@ -289,7 +353,7 @@ def predict_segments(
     loader = BucketedLoader(
         dataset, buckets=buckets, batch_size=batch_size,
         feature_dim=feature_dim, num_objects=num_objects,
-        feats_dtype=getattr(model, "compute_dtype", torch.float32),
+        feats_dtype=getattr(model, "compute_dtype", torch.float32), device=device,
     )
     infer = build_infer(model, mode, layout, topk_per_pair, topk_per_seg,
                         device, plain=plain, num_pair_proposals=num_pair_proposals,
@@ -297,8 +361,10 @@ def predict_segments(
 
     short_term_relations: Dict[Tuple[str, int, int], tuple] = {}
     seen = set()
-    for _bucket, batch, indices, records in loader:
-        scores_b, pair_idx_b, pred_idx_b, valid_b = infer(batch)
+
+    def drain(entry):
+        handle, indices, records, pairs_b = entry
+        scores_b, pair_idx_b, pred_idx_b, valid_b = infer.readback(handle)
         for b, index in enumerate(indices):
             if index in seen:  # end-of-pass padding repeats segments
                 continue
@@ -308,14 +374,13 @@ def predict_segments(
                 if logger:
                     logger.info(f"No relation exists in video segment {index}")
                 continue
-            pairs = batch["pairs"][b]
             cls_logits = record.cls_logits
             obj_labels = (
                 np.argmax(cls_logits, axis=1) if cls_logits.size
                 else np.zeros(record.num_proposals, np.int64)
             )
             ok = np.asarray(valid_b[b], bool)
-            tids = pairs[pair_idx_b[b][ok]].astype(np.int64)  # (M, 2)
+            tids = pairs_b[b][pair_idx_b[b][ok]].astype(np.int64)  # (M, 2)
             triplets = np.stack(
                 [
                     obj_labels[tids[:, 0]],
@@ -328,6 +393,20 @@ def predict_segments(
             short_term_relations[index] = (
                 predictions, np.asarray(record.iou), np.asarray(record.trackid)
             )
+
+    pending: deque = deque()
+    for _bucket, batch, indices, records in loader:
+        if batch_hook is not None:
+            batch = batch_hook(batch)
+        slim = [_PendingSeg(r.num_proposals, r.cls_logits, r.iou, r.trackid)
+                for r in records]
+        # the pair ids are copied: the batch's buffers go back to the loader
+        pending.append((infer.dispatch(batch), indices, slim,
+                        np.array(batch["pairs"], copy=True)))
+        if len(pending) > pipeline_depth:
+            drain(pending.popleft())
+    while pending:
+        drain(pending.popleft())
     return short_term_relations
 
 
