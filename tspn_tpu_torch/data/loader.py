@@ -130,12 +130,18 @@ def leaf_to_device(leaf, device, non_blocking: bool = False) -> torch.Tensor:
     return torch.as_tensor(leaf).to(device, non_blocking=non_blocking)
 
 
+def host_array(leaf):
+    """A leaf as numpy: a pinned leaf's numpy view, a numpy leaf itself (a
+    bf16 leaf stays a tensor: numpy has no bf16)."""
+    if isinstance(leaf, torch.Tensor) and leaf.dtype != torch.bfloat16:
+        return leaf.numpy()
+    return leaf
+
+
 def fill_padded(bufs: Dict[str, np.ndarray], b: int, record, n_bucket: int) -> None:
     """Write one record into batch slot ``b``; pairs that reach past the
     bucket's capacity are dropped."""
-    # numpy views of pinned leaves; a bf16 leaf stays a tensor
-    bufs = {k: v.numpy() if isinstance(v, torch.Tensor) and v.dtype != torch.bfloat16 else v
-            for k, v in bufs.items()}
+    bufs = {k: host_array(v) for k, v in bufs.items()}
     n = min(record.num_proposals, n_bucket)
     p_max = n_bucket * (n_bucket - 1)
     keep = (record.pairs[:, 0] < n) & (record.pairs[:, 1] < n)

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from tspn_tpu_torch.data.layout import FeatureLayout
-from tspn_tpu_torch.data.loader import BucketedLoader, leaf_to_device
+from tspn_tpu_torch.data.loader import BucketedLoader, host_array, leaf_to_device
 from tspn_tpu_torch.ops import pairwise as pw
 
 def select_topk(
@@ -231,7 +231,7 @@ class Infer:
     """Batched inference split in two halves: ``dispatch(batch)`` queues a
     batch's copies and scoring and returns a handle, ``readback(handle)``
     waits for it -> (scores, pair_idx, pred_idx, valid) numpy arrays, each
-    (B, K). ``infer(batch)`` does both. On a CUDA device the copies run on
+    (B, K). On a CUDA device the copies run on
     a copy stream, ordered to the compute stream by an event, and the
     results come back into pinned buffers, completed by an event; on the
     CPU ``dispatch`` computes the results."""
@@ -266,9 +266,6 @@ class Infer:
         host, done = handle
         done.synchronize()
         return tuple(h.numpy() for h in host)
-
-    def __call__(self, batch):
-        return self.readback(self.dispatch(batch))
 
 
 def build_infer(model, mode: str, layout: FeatureLayout, topk_per_pair: int,
@@ -402,7 +399,7 @@ def predict_segments(
                 for r in records]
         # the pair ids are copied: the batch's buffers go back to the loader
         pending.append((infer.dispatch(batch), indices, slim,
-                        np.array(batch["pairs"], copy=True)))
+                        host_array(batch["pairs"]).copy()))
         if len(pending) > pipeline_depth:
             drain(pending.popleft())
     while pending:
