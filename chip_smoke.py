@@ -5,15 +5,20 @@
 Phases, in order; any failure raises and the exit code is nonzero:
 
 1. report the card (nvidia-smi name and power limit) and versions;
-2. build the kernels from their nine sources with nvcc, one build per
+2. build the kernels from their ten sources with nvcc, one build per
    source, all side by side (a fresh checkout always builds; a second run
-   loads the builds), and report the q8s build (tspn_tpu_torch/csrc/q8s.cu,
-   which holds K1, K4 and K6);
-3. hold the q8s kernel against its plain PyTorch version at the three
-   geometries of the serve path (tracklet, rel, expanded), with ragged
-   row counts: the results must be equal bit for bit (torch.equal);
-   time both with CUDA events (``runtime.timing.cuda_median_ms``: 3
-   warm-ups, then the median of 5 runs of 20 queued calls);
+   loads the builds), and report the builds of tspn_tpu_torch/csrc/
+   q8s_sm90.cu (K1 and K6, wgmma) and q8s.cu (K4, dp4a);
+3. hold K1 (q8s) and K6 (q8t) against their plain PyTorch versions at six
+   geometries: the serve path's three (tracklet, rel, expanded), the pair-
+   kernel bench's 95,232 x 11,264 rows, a ragged 95,155 and a VidOR
+   segment's 333 pairs, with ragged row counts and zero rows: K1 and K6
+   equal to plain and K6 to K1 transposed, bit for bit (torch.equal);
+   time each with CUDA events (``runtime.timing.cuda_median_ms``: 3
+   warm-ups, then the median of 5 runs of 20 queued calls) beside its
+   plain version, the dp4a template they left (K4 on the same rows) and
+   torch._int_mm on the same rows (a yardstick the port never calls),
+   with its plan (split or not, pieces, staging) and % of the bound;
 4. report the q8f_fused build (csrc/q8f_fused.cu) and hold it against its
    plain version bit for bit at four geometries: the serve geometry (16 x
    992 rows, N 32), a ragged row count, the PPN-pruned geometry (16 x 256
@@ -23,10 +28,12 @@ Phases, in order; any failure raises and the exit code is nonzero:
    buckets [8, 16, 24, 32], batch 16, top-k 20/200, weights from a seeded
    normal(0.01) init carried across with state_dict_from_jax; run
    predict_segments on the GPU with the kernels and with the plain
-   versions, in turns (plain, kernel, kernel, plain) after one untimed
-   run of each; each batch must launch q8s once (tracklet pass) and
-   q8f_fused once (rel pass), and the top-k selections must be equal;
-   one more kernel run under torch.profiler gives the device's busy share;
+   versions, the kernels at pipeline_depth 2 and 0, in turns (plain,
+   kernel, kernel at depth 0 twice, kernel, plain; SERVE_TURNS) after one
+   untimed run of each; each batch must launch q8s once (tracklet pass)
+   and q8f_fused once (rel pass), and the top-k selections must be equal,
+   at either depth; one more kernel run at each depth under
+   torch.profiler gives the device's busy share;
 6. serve q8: the same over expanded int8 rows, one q8s launch per batch;
 7. report the build of the fused_classify kernel
    (tspn_tpu_torch/csrc/fused_classify.cu);
@@ -75,8 +82,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
     give the same detections apart from near-ties; one detect_tta batch
     and one roi_classeme call (one launch each); one profiled run for the
     busy share and K7's share of the device time;
-16. report the builds of csrc/q8s.cu, csrc/q8_bf16.cu (K5) and
-    csrc/pair_probe.cu (the probe, wgmma);
+16. report the builds of csrc/q8s_sm90.cu (K6), csrc/q8s.cu (K4),
+    csrc/q8_bf16.cu (K5) and csrc/pair_probe.cu (the probe, wgmma);
 17. hold K4 (q8i8), K5 (q8bf), K6 (q8t) and the probe against their plain
     versions (run in chunks of 8192 rows) at the geometry of
     tools/bench_pair_kernels.py (96 x 992 = 95,232 rows, D 11,264), at a
@@ -104,7 +111,7 @@ Phases, in order; any failure raises and the exit code is nonzero:
     schedule (row grid with 2, 3 and 4 stages, persistent with 2 and 4,
     split-K by 2 and 4, the 128-wide sidecar), so split-K equals no
     split; at the tools' geometry Kr side equal to K1's kernel output,
-    and each kernel, its plain version, K1 (dp4a) and torch._int_mm (a
+    and each kernel, its plain version, K1 and torch._int_mm (a
     yardstick the port never calls) timed, with the bound beside each;
 21. run the four ported rel tools, python -m
     tspn_tpu_torch.tools.bench_rel_{steps,pipeline,probe,int4}, at their
@@ -194,6 +201,7 @@ from types import SimpleNamespace as NS
 
 import torch
 
+from tspn_tpu_torch.ops.pairwise import BlockGeom, rel_geom, tracklet_geom
 from tspn_tpu_torch.runtime.timing import ITERS, REPS, WARMUP, bound, cuda_median_ms
 from tspn_tpu_torch.tools.bench_pair_kernels import PROBE_ROWS
 
@@ -215,6 +223,12 @@ SOLVER = NS(
                  WARMUP_FACTOR=1.0 / 3, WARMUP_ITERS=4, WARMUP_METHOD="linear"),
 )
 TIE_TOL = 1e-6
+# a serve phase's timed runs: (variant, pipeline_depth), the kernels at
+# depth 2 and 0 and the plain versions in turns; with the warm-up and the
+# two profiled passes a serve phase makes KERNEL_SERVE_RUNS kernel runs
+SERVE_TURNS = (("plain", 2), ("kernel", 2), ("kernel", 0), ("kernel", 0), ("kernel", 2),
+               ("plain", 2))
+KERNEL_SERVE_RUNS = 1 + sum(v == "kernel" for v, _d in SERVE_TURNS) + 2
 # bf16 fused serve: kernel and plain round a normalized value near a bf16
 # midpoint one ulp apart now and then (2**-8 of one term of a logit)
 TIE_TOL_BF16 = 1e-5
@@ -257,6 +271,16 @@ DET_TIE = 1e-5
 VARIANT_CASES = (("tool", 35, NUM_SEGMENTS * 992), ("ragged", 35, NUM_SEGMENTS * 992 - 77),
                  ("vidor", 80, 333))
 VARIANT_CHUNK = 8192  # rows per plain call: a float64 copy of 95k x 11264 is 8.6 GB
+# K1 and K6 checks: (name, geometry (None: the VidOR layout), rows, outputs);
+# the serve path's three with ragged row counts (the tracklet pass, the
+# rel rows of the rel-pass tools, the expanded q8 rows), the geometry of
+# tools/bench_pair_kernels.py, its ragged count, and a VidOR segment's pairs
+K1_CASES = (("tracklet", tracklet_geom(), 3072 - 7, 2 * NUM_PREDICATES),
+            ("rel", rel_geom(), NUM_SEGMENTS * 992 - 29, NUM_PREDICATES),
+            ("expanded", BlockGeom(3072, 8, 1024), 4096 - 13, NUM_PREDICATES),
+            ("tool", BlockGeom(3072, 8, 1024), NUM_SEGMENTS * 992, NUM_PREDICATES),
+            ("ragged", BlockGeom(3072, 8, 1024), NUM_SEGMENTS * 992 - 77, NUM_PREDICATES),
+            ("vidor", None, 333, NUM_PREDICATES))
 # the probe alone: (name, pairs P, width D): one pair and 4,096 (D split
 # across blocks, x by TMA), and D 64 (one zero-padded chunk)
 PROBE_CASES = (("p1", 1, 11264), ("p4096", 4096, 11264), ("d64", 4096, 64),
@@ -288,42 +312,74 @@ def log(msg: str) -> None:
 
 
 def phase_kernel_check(dev) -> dict:
-    """Kernel vs plain at the serve path's geometries; ragged P."""
+    """K1 and K6 (csrc/q8s_sm90.cu) against their plain versions at the six
+    geometries of K1_CASES, ragged P, zero rows: K1 and K6 equal to plain
+    and K6 to K1 transposed, bit for bit; each timed beside its plain
+    version, the dp4a template they left (K4, which still runs on it) and
+    torch._int_mm on the same rows, with its plan and % of the bound."""
+    from tspn_tpu_torch.data.layout import FeatureLayout
     from tspn_tpu_torch.ops import pairwise as pw
 
-    gen = torch.Generator().manual_seed(SEED)
-    cases = [
-        ("tracklet", pw.tracklet_geom(), 3072 - 7, 2 * NUM_PREDICATES),
-        ("rel", pw.rel_geom(), 95232 - 29, NUM_PREDICATES),
-        ("expanded", pw.BlockGeom(3072, 8, 1024), 4096 - 13, NUM_PREDICATES),
-    ]
-    report = {}
-    for name, geom, p, r in cases:
-        d = geom.device_dim
-        q = torch.randint(-127, 128, (p, d), generator=gen, dtype=torch.int8)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    report = {"q8s": {}, "q8t": {}}
+    for name, geom, p, r in K1_CASES:
+        geom = geom or FeatureLayout.for_objects(80)
+        d, nseg = geom.device_dim, geom.num_bow_blocks + 1
+        q = torch.randint(-127, 128, (p, d), generator=gen, device=dev, dtype=torch.int8)
         q[-50:] = 0  # padded batch rows are all-zero
-        scales = torch.rand((p, 16), generator=gen) / 64
-        qw_t = torch.randint(-127, 128, (r, d), generator=gen, dtype=torch.int8)
-        sw = torch.rand((r,), generator=gen) / 127
-        b = torch.randn((r,), generator=gen)
-        args = [t.to(dev) for t in (q, scales, qw_t, sw, b)] + [geom]
-        out = pw.normalize_classify_q8s(*args)
-        ref = pw.normalize_classify_q8s_plain(*args)
+        scales = torch.rand((p, 16), generator=gen, device=dev) / 64
+        qw_t = torch.randint(-127, 128, (r, d), generator=gen, device=dev, dtype=torch.int8)
+        sw = torch.rand((r,), generator=gen, device=dev) / 127
+        b = torch.randn((r,), generator=gen, device=dev)
+        xt, scales_t = q.T.contiguous(), scales.T.contiguous()
+        k1 = lambda: pw.normalize_classify_q8s(q, scales, qw_t, sw, b, geom)
+        k6 = lambda: pw.normalize_classify_q8t(xt, scales_t, qw_t, sw, b, geom)
+        plain1 = lambda: in_chunks(p, 0, lambda s: pw.normalize_classify_q8s_plain(
+            q[s], scales[s], qw_t, sw, b, geom))
+        plain6 = lambda: in_chunks(p, 1, lambda s: pw.normalize_classify_q8t_plain(
+            xt[:, s], scales_t[:, s], qw_t, sw, b, geom))
+        out1, out6, ref = k1(), k6(), plain1()
         torch.cuda.synchronize()
-        if out.shape != (p, r) or not torch.isfinite(out).all():
-            raise AssertionError(f"q8s {name}: bad output {tuple(out.shape)}")
-        err = (out - ref).abs().max().item()
-        if not torch.equal(out, ref):
-            raise AssertionError(f"q8s {name}: kernel != plain, max |err| {err}")
-        ms = cuda_median_ms(lambda: pw.normalize_classify_q8s(*args))
-        plain_ms = cuda_median_ms(lambda: pw.normalize_classify_q8s_plain(*args))
-        report[name] = {"rows": p, "width": d, "cols": r, "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms,
-                        **bound((args[0], args[1][:, :geom.num_bow_blocks + 1], *args[2:5]),
-                                out, 2.0 * p * d * r, "int8")}
-        log(f"q8s {name}: P={p} D={d} R={r} equal=True "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"bound {report[name]['bound_ms']:.4f} ms ({report[name]['bound_by']})")
+        if out1.shape != (p, r) or not torch.isfinite(out1).all():
+            raise AssertionError(f"q8s {name}: bad output {tuple(out1.shape)}")
+        err = {"q8s": float((out1 - ref).abs().max()), "q8t": float((out6 - ref.T).abs().max())}
+        if not torch.equal(out1, ref):
+            raise AssertionError(f"q8s {name}: kernel != plain, max |err| {err['q8s']}")
+        if not torch.equal(out6, ref.T) or not torch.equal(out6, plain6()):
+            raise AssertionError(f"q8t {name}: kernel != plain or K1 transposed, "
+                                 f"max |err| {err['q8t']}")
+        del ref
+        # the dp4a template (csrc/q8s.cu): K4 on the same rows, its block
+        # scales computed in the kernel
+        dp4a_ms = cuda_median_ms(lambda: pw.normalize_classify_q8i8(
+            q, scales[:, 0].contiguous(), qw_t, sw, b, geom))
+        # torch._int_mm, never called by the port: q @ qw_t.T padded to 8 columns
+        w_pad = torch.zeros((d, -(-r // 8) * 8), dtype=torch.int8, device=dev)
+        w_pad[:, :r] = qw_t.T
+        lib_ms = {"q8s": cuda_median_ms(lambda: torch._int_mm(q, w_pad))}
+        # K6's own form, w (R, D) @ xt, takes P % 8 == 0 only
+        lib_ms["q8t"] = (cuda_median_ms(lambda: torch._int_mm(qw_t, xt)) if p % 8 == 0
+                         else lib_ms["q8s"])
+        del w_pad
+        operands = {"q8s": (q, scales[:, :nseg], qw_t, sw, b),
+                    "q8t": (xt, scales_t[:nseg], qw_t, sw, b)}
+        for key, kern, plain, out, transposed in (("q8s", k1, plain1, out1, False),
+                                                  ("q8t", k6, plain6, out6, True)):
+            plan = pw.q8s_plan(p, r, d, geom, sms, transposed)
+            c = report[key][name] = {
+                "rows": p, "width": d, "cols": r, "max_abs_err": err[key],
+                "ms": cuda_median_ms(kern), "plain_ms": cuda_median_ms(plain, iters=3),
+                "dp4a_ms": dp4a_ms, "library_ms": lib_ms[key],
+                "plan": {"split": plan.split, "pieces": len(plan.pieces), "items": plan.items,
+                         "staging": plan.staging, "grid": plan.grid},
+                **bound(operands[key], out, 2.0 * p * d * r, "int8")}
+            log(f"{key} {name}: P={p} D={d} R={r} equal=True kernel {c['ms']:.4f} ms "
+                f"({100 * c['bound_ms'] / c['ms']:.1f}% of the {c['bound_ms']:.4f} ms bound, "
+                f"{c['bound_by']}) plain {c['plain_ms']:.4f} ms dp4a (K4) {dp4a_ms:.4f} ms "
+                f"torch._int_mm {lib_ms[key]:.4f} ms; plan {c['plan']}")
+        del q, xt, out1, out6
+        torch.cuda.empty_cache()
     return report
 
 
@@ -550,11 +606,13 @@ def profile_run(fn, watch: tuple = ()) -> dict:
 
 def phase_serve(label: str, dataset, model, dev, launches_per_batch: dict,
                 compare=same_selection, **extra) -> dict:
-    """predict_segments with the kernels and with the plain versions, in
-    turns, after one untimed run of each; then one profiled kernel run
-    (its host-to-device copies summed apart). ``launches_per_batch`` maps
-    each kernel to its launches per batch; ``extra`` goes to
-    predict_segments (PPN pruning)."""
+    """predict_segments with the kernels and with the plain versions, and
+    the kernels at pipeline_depth 2 (the default) and 0, in turns
+    (SERVE_TURNS), after one untimed run of each variant; then one
+    profiled kernel run at each depth (its host-to-device copies summed
+    apart). Every kernel run selects the same top-k, at either depth.
+    ``launches_per_batch`` maps each kernel to its launches per batch;
+    ``extra`` goes to predict_segments (PPN pruning)."""
     from tspn_tpu_torch.data.loader import BucketedLoader
     from tspn_tpu_torch.ops import pairwise as pw
     from tspn_tpu_torch.runtime.predict import predict_segments
@@ -562,7 +620,7 @@ def phase_serve(label: str, dataset, model, dev, launches_per_batch: dict,
     serve = dict(SERVE, **extra)
     loader = BucketedLoader(dataset, SERVE["buckets"], SERVE["batch_size"],
                             dataset.feature_width(), SERVE["num_objects"],
-                            feats_dtype=model.compute_dtype)
+                            feats_dtype=model.compute_dtype, prefetch=0)
     t0 = time.perf_counter()
     padded = sum(batch["feats"].shape[0] * batch["feats"].shape[1]
                  for _b, batch, _i, _r in loader)
@@ -575,16 +633,19 @@ def phase_serve(label: str, dataset, model, dev, launches_per_batch: dict,
         f"({padded} rows with padding), {feat_bytes / 1e9:.3f} GB of "
         f"pair rows, {n_batches} batches; batch assembly alone {loader_s:.3f} s")
 
+    def run(variant, depth):
+        return predict_segments(model, dataset, device=dev, plain=variant == "plain",
+                                pipeline_depth=depth, **serve)
+
     for variant in ("plain", "kernel"):  # warm-up, untimed
-        predict_segments(model, dataset, device=dev, plain=variant == "plain", **serve)
-    runs = {"plain": [], "kernel": []}
+        run(variant, 2)
+    runs = {"plain": [], "kernel": [], "kernel_depth0": []}
     outs = {}
-    for variant in ("plain", "kernel", "kernel", "plain"):
+    for variant, depth in SERVE_TURNS:
         before = dict(pw.LAUNCHES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = predict_segments(model, dataset, device=dev,
-                               plain=variant == "plain", **serve)
+        out = run(variant, depth)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         for kernel, per_batch in launches_per_batch.items():
@@ -592,31 +653,33 @@ def phase_serve(label: str, dataset, model, dev, launches_per_batch: dict,
             want = per_batch * n_batches if variant == "kernel" else 0
             if launched != want:
                 raise AssertionError(
-                    f"serve {label} {variant}: {launched} {kernel} launches, "
-                    f"want {want}"
+                    f"serve {label} {variant} depth {depth}: {launched} {kernel} "
+                    f"launches, want {want}"
                 )
         check_output(out, dataset)
-        runs[variant].append(len(dataset) / seconds)
+        runs[variant + ("_depth0" if depth == 0 else "")].append(len(dataset) / seconds)
         outs.setdefault(variant, selection(out))
         if selection(out) != outs[variant]:
-            raise AssertionError(f"serve {label} {variant}: runs disagree")
+            raise AssertionError(f"serve {label} {variant} depth {depth}: runs disagree")
     try:
         ties = compare(outs["kernel"], outs["plain"])
     except AssertionError as exc:
         raise AssertionError(f"serve {label}: {exc}") from None
-    prof = profile_run(
-        lambda: predict_segments(model, dataset, device=dev, **serve), watch=(COPY,)
-    )
+    prof = {f"depth{depth}": profile_run(lambda: run("kernel", depth), watch=(COPY,))
+            for depth in (2, 0)}
     result = {"batches": n_batches, "pairs": rows, "rows_with_padding": padded,
               "feature_bytes": feat_bytes, "loader_s": loader_s,
               "near_ties_excluded": ties,
               "segments_per_s": statistics.median(runs["kernel"]),
+              "depth0_segments_per_s": statistics.median(runs["kernel_depth0"]),
               "plain_segments_per_s": statistics.median(runs["plain"]),
               "runs": runs, "profile": prof}
     log(f"serve {label}: top-k equal to plain in all {len(outs['kernel'])} "
-        f"segments ({ties} near-tie entries excluded); launches per batch "
-        f"{launches_per_batch}; segments/s kernel {runs['kernel']} "
-        f"plain {runs['plain']}")
+        f"segments ({ties} near-tie entries excluded), and at pipeline_depth 2 and 0; "
+        f"launches per batch {launches_per_batch}; segments/s kernel, depth 2 "
+        f"{runs['kernel']}, depth 0 {runs['kernel_depth0']}; plain {runs['plain']}; "
+        f"busy share depth 2 {prof['depth2']['device_busy_share']}, depth 0 "
+        f"{prof['depth0']['device_busy_share']}")
     log(f"serve {label} profile: {json.dumps(prof)}")
     return result
 
@@ -1374,7 +1437,7 @@ def phase_rel_check(dev) -> dict:
     tool = report["rel_s8"]["tool"]
     log(f"rel_s8 tool: f32 {tool['f32_ms']:.4f} ms; side by schedule {json.dumps(tool['side_ms'])}"
         f" (plain {tool['side_plain_ms']:.4f} ms, bound {tool['side_bound']['bound_ms']:.4f} ms);"
-        f" K1 (dp4a) {tool['k1_q8s_ms']:.4f} ms; torch._int_mm {tool['library_ms']:.4f} ms,"
+        f" K1 {tool['k1_q8s_ms']:.4f} ms; torch._int_mm {tool['library_ms']:.4f} ms,"
         f" equal {tool['library_equal']}")
     report["check_launches"] = {k: rel.LAUNCHES[k] - before[k] for k in rel.LAUNCHES}
     log(f"rel checks: launches {report['check_launches']}")
@@ -1818,12 +1881,12 @@ def phase_detector_train(dev) -> dict:
 
 
 def build_kernels() -> None:
-    """The nine sources' nvcc builds (K1, K4 and K6 share q8s.cu; Kr, Kn
-    and Ks4 rel.cu; T-roi 1-3 roi_probes.cu), one per source, started
-    together."""
+    """The ten sources' nvcc builds (K1 and K6 share q8s_sm90.cu, K4 is
+    q8s.cu; Kr, Kn and Ks4 rel.cu; T-roi 1-3 roi_probes.cu), one per source,
+    started together."""
     from tspn_tpu_torch.ops import _cuda
 
-    libraries = (_cuda.q8s_library, _cuda.q8f_fused_library,
+    libraries = (_cuda.q8s_sm90_library, _cuda.q8i8_library, _cuda.q8f_fused_library,
                  _cuda.fused_classify_library, _cuda.roi_align_library,
                  _cuda.q8_bf16_library, _cuda.rel_library,
                  _cuda.fused_classify_bf16_library, _cuda.roi_sep_fused_library,
@@ -1864,13 +1927,14 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
     """One entry of the kernels line: the largest error over the checked
     geometries, and the times and bound at the geometry ``timed``. Only
     the probe and Kr (int32) have a library time (``torch._int_mm``, where
-    it accepts the shapes), and selector and constg (``torch.matmul`` with
-    their G materialized): PyTorch has no int4 product for Kn and Ks4,
-    and no single PyTorch call computes the other kernels' functions
-    (they scale segments of an int32 or bf16 product by per-row scales;
-    for RoIAlign, ``F.grid_sample``'s zero padding splits the weight at the
-    border where torchvision's rule clamps [-1, 0] to index 0 at full
-    weight)."""
+    it accepts the shapes), K1 and K6 ``torch._int_mm`` of the same rows
+    (their int32 product without the segment fold, the nearest single
+    call), and selector and constg (``torch.matmul`` with their G
+    materialized): PyTorch has no int4 product for Kn and Ks4, and no
+    single PyTorch call computes the other kernels' functions (they scale
+    segments of an int32 or bf16 product by per-row scales; for RoIAlign,
+    ``F.grid_sample``'s zero padding splits the weight at the border where
+    torchvision's rule clamps [-1, 0] to index 0 at full weight)."""
     c = checks[timed]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
@@ -1897,6 +1961,7 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     build_kernels()
+    report_build("q8s_sm90")
     report_build("q8s")
     checks = phase_kernel_check(dev)
     report_build("q8f_fused")
@@ -1940,13 +2005,14 @@ def main() -> int:
         return served, phase_train("fused", fused_data, dev)
 
     (serve["fused_f32"], train), counts_fused = main_path("fused serve + train", fused)
-    want = serve["fused_f32"]["batches"] * 4 + 2 * TRAIN_STEPS + PROFILED_STEPS
+    want = (serve["fused_f32"]["batches"] * KERNEL_SERVE_RUNS + 2 * TRAIN_STEPS
+            + PROFILED_STEPS)
     if counts_fused["fused_classify"] != want:
         raise AssertionError(
             f"fused_classify launches {counts_fused['fused_classify']}, want {want}: "
-            f"{serve['fused_f32']['batches']} batches x 4 kernel serve runs "
-            f"(warm-up, two timed, profiled) + 2 x {TRAIN_STEPS} + {PROFILED_STEPS} "
-            f"kernel training steps"
+            f"{serve['fused_f32']['batches']} batches x {KERNEL_SERVE_RUNS} kernel serve "
+            f"runs (warm-up, four timed, two profiled) + 2 x {TRAIN_STEPS} + "
+            f"{PROFILED_STEPS} kernel training steps"
         )
 
     def ppn():
@@ -1963,6 +2029,7 @@ def main() -> int:
         raise AssertionError(f"roi_align launches {counts_det['roi_align']}, want "
                              f"{detect['want_launches']}")
 
+    report_build("q8s_sm90")
     report_build("q8s")
     report_build("q8_bf16")
     report_build("pair_probe")
@@ -2005,7 +2072,8 @@ def main() -> int:
 
     (served_bf16, train_bf16), counts_bf16 = main_path("bf16 serve + train", bf16_model)
     serve.update(served_bf16)
-    want = served_bf16["fused_bf16"]["batches"] * 4 + 2 * TRAIN_STEPS + PROFILED_STEPS
+    want = (served_bf16["fused_bf16"]["batches"] * KERNEL_SERVE_RUNS + 2 * TRAIN_STEPS
+            + PROFILED_STEPS)
     if counts_bf16["fused_classify_bf16"] != want or counts_bf16["fused_classify"]:
         raise AssertionError(f"bf16 launches {counts_bf16}: want {want} fused_classify_bf16 "
                              "and no f32 fused_classify")
@@ -2067,7 +2135,7 @@ def main() -> int:
 
     log(smi)
     log(json.dumps({"serve": serve, "train_fused": train, "train_fused_ppn": train_ppn,
-                    "q8s_geometries": checks, "q8f_fused_geometries": k2_checks,
+                    "q8s_q8t_geometries": checks, "q8f_fused_geometries": k2_checks,
                     "fused_geometries": fused_checks, "detector": detect,
                     "roi_align_geometries": k7_checks,
                     "variant_geometries": variant_checks, "variant_check_launches": checked,
@@ -2088,8 +2156,8 @@ def main() -> int:
                                            "bench_roialign_tools": counts_roi,
                                            "detector_train_bf16_detect": counts_train}}))
     log(json.dumps({"kernels": [
-        kernel_entry("q8s", "tspn_tpu_torch/csrc/q8s.cu",
-                     "tspn_tpu/ops/pairwise.py:481", launches["q8s"], checks, "rel"),
+        kernel_entry("q8s", "tspn_tpu_torch/csrc/q8s_sm90.cu",
+                     "tspn_tpu/ops/pairwise.py:481", launches["q8s"], checks["q8s"], "rel"),
         kernel_entry("fused_classify", "tspn_tpu_torch/csrc/fused_classify.cu",
                      "tspn_tpu/ops/pairwise.py:1288", launches["fused_classify"],
                      fused_checks, "train"),
@@ -2115,9 +2183,11 @@ def main() -> int:
         kernel_entry("q8bf", "tspn_tpu_torch/csrc/q8_bf16.cu",
                      "tspn_tpu/ops/pairwise.py:346", launches["q8bf"],
                      variant_checks["q8bf"], "tool", check_launches=checked["q8bf"]),
-        kernel_entry("q8t", "tspn_tpu_torch/csrc/q8s.cu",
+        kernel_entry("q8t", "tspn_tpu_torch/csrc/q8s_sm90.cu",
                      "tspn_tpu/ops/pairwise.py:1210", launches["q8t"],
-                     variant_checks["q8t"], "tool", check_launches=checked["q8t"]),
+                     {**checks["q8t"], **{f"{k}_variants": v for k, v in
+                                          variant_checks["q8t"].items()}}, "tool",
+                     check_launches=checked["q8t"]),
         kernel_entry("q8_probe", "tspn_tpu_torch/csrc/pair_probe.cu",
                      "tools/bench_pair_kernels.py:111", launches["q8_probe"],
                      variant_checks["q8_probe"], "tool", check_launches=checked["q8_probe"],

@@ -5,6 +5,11 @@ flax are absent: ``python -m pytest tests/test_torch_q8s_gpu.py -q``.
 
 * The kernel equals its plain PyTorch version bit for bit at the serve
   path's three geometries, with a ragged row count and zero rows.
+* K1 and K6 (csrc/q8s_sm90.cu) equal their plain versions bit for bit,
+  and K6 equals K1 transposed, at the six geometries of the port (tool,
+  rel, tracklet, expanded, ragged, VidOR) and at segments that end on 64
+  but not 128 bytes, each as q8s_plan cuts it, split into pieces and
+  unsplit.
 * The wrapper raises on operands the kernel does not take.
 * predict_segments selects the same top-k with the kernels as with the
   plain versions, launching q8s once per batch for q8f (its tracklet
@@ -44,6 +49,76 @@ def _inputs(geom, p, r, device, seed=4):
     sw = (rng.rand(r) / 127).astype(np.float32)
     b = rng.randn(r).astype(np.float32)
     return [torch.from_numpy(a).to(device) for a in (q, scales, qw_t, sw, b)]
+
+
+EXPANDED = tpw.BlockGeom(3072, 8, 1024)
+# (rows P, outputs R, geometry)
+SIX = {
+    "tool": (96 * 992, 132, EXPANDED),
+    "rel": (96 * 992 - 29, 132, tpw.rel_geom()),
+    "tracklet": (3072 - 7, 264, tpw.tracklet_geom()),
+    "expanded": (4096 - 13, 132, EXPANDED),
+    "ragged": (96 * 992 - 77, 132, EXPANDED),
+    "vidor": (333, 132, None),
+    "odd64": (1037, 132, tpw.BlockGeom(192, 2, 320)),  # segments end on 64 bytes
+}
+CHUNK = 8192  # rows per plain call: a float64 copy of 95k x 11264 is 8.6 GB
+
+
+def _forced(split: bool):
+    """q8s_plan with the split forced on (a middle one of the cuts the
+    planner weighs, segments cut into several shares where they are long
+    enough) or off (whole segments)."""
+    plan = tpw.q8s_plan
+
+    def forced(p, r, d, geom, sms, transposed=False):
+        base = plan(p, r, d, geom, sms, transposed)
+        chunks = [-(-(hi - lo) // tpw.Q8S_CHUNK) for lo, hi in base.segments]
+        if not split:
+            pieces = tuple((k, 0, c) for k, c in enumerate(chunks))
+            return base._replace(pieces=pieces, split=False, grid=min(base.tiles, sms))
+        cuts = list(tpw._q8s_cuts(chunks))
+        pieces = cuts[len(cuts) // 2][1]
+        return base._replace(pieces=pieces, split=True,
+                             grid=min(base.tiles * len(pieces), sms))
+
+    return forced
+
+
+@pytest.mark.parametrize("cut", ["plan", "split", "unsplit"])
+@pytest.mark.parametrize("name", list(SIX))
+def test_q8s_and_q8t_equal_plain(cuda_device, monkeypatch, name, cut):
+    from tspn_tpu_torch.data.layout import FeatureLayout
+
+    p, r, geom = SIX[name]
+    geom = geom or FeatureLayout.for_objects(80)
+    if cut != "plan":
+        monkeypatch.setattr(tpw, "q8s_plan", _forced(cut == "split"))
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    d = geom.device_dim
+    q = torch.randint(-128, 128, (p, d), generator=gen, device=cuda_device, dtype=torch.int8)
+    q[-5:] = 0  # padded batch rows are all-zero
+    scales = torch.rand((p, 16), generator=gen, device=cuda_device) / 64
+    qw_t = torch.randint(-128, 128, (r, d), generator=gen, device=cuda_device, dtype=torch.int8)
+    sw = torch.rand((r,), generator=gen, device=cuda_device) / 127
+    b = torch.randn((r,), generator=gen, device=cuda_device)
+    xt, scales_t = q.T.contiguous(), scales.T.contiguous()
+    before = (tpw.LAUNCHES["q8s"], tpw.LAUNCHES["q8t"])
+    k1 = tpw.normalize_classify_q8s(q, scales, qw_t, sw, b, geom)
+    k6 = tpw.normalize_classify_q8t(xt, scales_t, qw_t, sw, b, geom)
+    torch.cuda.synchronize()
+    assert (tpw.LAUNCHES["q8s"], tpw.LAUNCHES["q8t"]) == (before[0] + 1, before[1] + 1)
+    ref = torch.cat([tpw.normalize_classify_q8s_plain(q[a:a + CHUNK], scales[a:a + CHUNK],
+                                                      qw_t, sw, b, geom)
+                     for a in range(0, p, CHUNK)])
+    assert k1.shape == (p, r) and torch.equal(k1, ref)
+    assert k6.shape == (r, p) and torch.equal(k6, ref.T)
+    del ref
+    ref_t = torch.cat([tpw.normalize_classify_q8t_plain(xt[:, a:a + CHUNK],
+                                                        scales_t[:, a:a + CHUNK], qw_t, sw, b,
+                                                        geom)
+                       for a in range(0, p, CHUNK)], dim=1)
+    assert torch.equal(k6, ref_t)
 
 
 @pytest.mark.parametrize("name", list(GEOMS))

@@ -64,24 +64,6 @@ struct Ring {
   static constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
 };
 
-// the box at (inner c0, outer c1) of a 2-D map into dst
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// B descriptor of a stage's w box: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart (SBO); LBO is unused for a swizzled K-major operand
-__device__ __forceinline__ uint64_t w_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-
 // D (64 x N, s32) += A (64 x 32 s8, registers) * B (32 x N s8, shared
 // memory, K-major); D is zeroed first when acc is 0.
 template <int N>
@@ -176,7 +158,6 @@ pair_probe_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constan
 
   if (threadIdx.x >= 256) {  // the producer warpgroup
     const int u = threadIdx.x - 256, warp = u / 32, lane = u % 32;
-    const uint32_t* xw = reinterpret_cast<const uint32_t*>(x);
     if (staging == kTma && u != 0) return;
     int stage = 0;
     uint32_t phase = 0;
@@ -185,37 +166,7 @@ pair_probe_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constan
       for (int c = item.c_lo; c < item.c_hi; ++c) {
         uint8_t* xs = ring + stage * RingN::kStageBytes;
         mbar_wait(&empty[stage], phase ^ 1);
-        if (staging == kLoads) {
-          // warp `warp` stages k rows warp + 4 i, lane l bytes 4l..4l+3 of
-          // each, all loads issued before the first store. The loads are
-          // aligned words, lane l's at the row's first word + l, so a warp
-          // reads whole lines; where the row starts off a word boundary
-          // (P % 4 != 0) each lane also reads the next word and shifts its
-          // 4 bytes out of the two. A word is read only if it holds a byte
-          // of the row, and bytes past P are masked.
-          uint32_t lo[kK / 4], hi[kK / 4];
-#pragma unroll
-          for (int i = 0; i < kK / 4; ++i) {
-            const int k = c * kK + warp + 4 * i;
-            const size_t a = (size_t)k * P + item.p0, end = (size_t)k * P + P, w0 = a / 4 + lane;
-            lo[i] = k < D && 4 * w0 < end ? __ldg(xw + w0) : 0u;
-            hi[i] = a % 4 && k < D && 4 * (w0 + 1) < end ? __ldg(xw + w0 + 1) : 0u;
-          }
-          uint32_t v[kK / 4];
-#pragma unroll
-          for (int i = 0; i < kK / 4; ++i) {
-            const size_t a = (size_t)(c * kK + warp + 4 * i) * P + item.p0;
-            uint32_t word = __funnelshift_r(lo[i], hi[i], (int)(a % 4) * 8);
-            const int valid = P - (item.p0 + 4 * lane);  // bytes of the row from this lane's
-            if (valid < 4) word = valid <= 0 ? 0u : word & ((1u << (8 * valid)) - 1u);
-            v[i] = word;
-          }
-#pragma unroll
-          for (int i = 0; i < kK / 4; ++i) {
-            const int row = warp + 4 * i, chunk = (lane / 4) ^ (row & 7);
-            *reinterpret_cast<uint32_t*>(xs + row * kK + chunk * 16 + (lane % 4) * 4) = v[i];
-          }
-        }
+        if (staging == kLoads) stage_pair_rows(xs, x, c * kK, item.p0, P, D, warp, lane);
         // each thread arrives after its own stores; thread 0's arrival
         // also sets the bytes the stage's TMA loads bring
         if (u == 0) {
@@ -236,18 +187,7 @@ pair_probe_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constan
 
   const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  // ldmatrix.x4.trans: lane l gives row l % 8 of matrix l / 8; matrix q
-  // holds k rows 16 (q / 2) + 4 (r / 2) + 2 (q % 2) + r % 2 (r = 0..7) of
-  // the warp's 16 pairs (8 16-bit units), so lane (g, t) receives k 4t, 4t
-  // + 1 (matrix 0) and 4t + 2, 4t + 3 (matrix 1) of pairs 2g and 2g + 1
-  // (and the same 16 k further on from matrices 2 and 3).
-  int lane_off;
-  {
-    const int q = lane / 8, r = lane % 8;
-    const int krow = 16 * (q / 2) + 4 * (r / 2) + 2 * (q % 2) + r % 2;
-    const int chunk = 4 * wg + warp;  // the warp's 16 pairs: one 16-byte chunk of a row
-    lane_off = krow * kK + ((chunk ^ (krow & 7)) << 4);
-  }
+  const int lane_off = pair_major_lane_off(lane, 4 * wg + warp);
   const uint32_t ring_addr = smem_addr(ring);
   int32_t acc[N / 2];
 #pragma unroll
@@ -261,19 +201,9 @@ pair_probe_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constan
       mbar_wait(&full[stage], phase);
       uint32_t a[4][4];
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {  // k32 step s: 32 k rows, 4096 bytes
-        uint32_t m0, m1, m2, m3;
-        asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                     : "=r"(m0), "=r"(m1), "=r"(m2), "=r"(m3)
-                     : "r"(xs + lane_off + s * 32 * kK));
-        // m0 = (2g k0, 2g+1 k0, 2g k1, 2g+1 k1), m1 the same at k2, k3
-        a[s][0] = __byte_perm(m0, m1, 0x6420);  // pair 2g (row g): k 4t..4t+3
-        a[s][1] = __byte_perm(m0, m1, 0x7531);  // pair 2g + 1 (row g + 8)
-        a[s][2] = __byte_perm(m2, m3, 0x6420);  // k 16 + 4t..
-        a[s][3] = __byte_perm(m2, m3, 0x7531);
-      }
+      for (int s = 0; s < 4; ++s) pair_major_a(xs + lane_off + s * 32 * kK, a[s]);  // k32 step s
       wgmma_fence();
-      const uint64_t desc = w_desc(xs + kXBytes);
+      const uint64_t desc = kmajor_desc(xs + kXBytes);
 #pragma unroll
       for (int s = 0; s < 4; ++s)
         Mma<N>::run(acc, a[s], desc + (uint64_t)((s * 32) >> 4), (c != item.c_lo) | s);
@@ -317,21 +247,6 @@ pair_probe_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constan
       }
     }
   }
-}
-
-
-// a 2-D int8 map (inner, outer) with rows `stride` bytes apart, boxes of
-// box_inner x box_outer with the 128-byte swizzle (zeros past the edges)
-bool encode_u8(EncodeTiled encode, CUtensorMap* map, const void* base, int inner, int outer,
-               int stride, int box_inner, int box_outer) {
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)stride};
-  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int N>

@@ -81,16 +81,12 @@ def _bound(name: str, entry: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
     return lib
 
 
-def q8s_library() -> ctypes.CDLL:
-    return _bound("q8s", "tspn_q8s_launch", 6, 5)
+def q8s_sm90_library() -> ctypes.CDLL:
+    return _bound("q8s_sm90", "tspn_q8s_sm90_launch", 8, 10)
 
 
 def q8i8_library() -> ctypes.CDLL:
     return _bound("q8s", "tspn_q8i8_launch", 6, 5)
-
-
-def q8t_library() -> ctypes.CDLL:
-    return _bound("q8s", "tspn_q8t_launch", 6, 5)
 
 
 def pair_probe_library() -> ctypes.CDLL:

@@ -11,7 +11,8 @@ Counterpart of ``tspn_tpu/ops/pairwise.py``. Two halves:
   on a CUDA tensor they launch the kernel (or raise), on a CPU tensor
   they run the kernel's plain version, which is also its oracle.
   ``normalize_classify_q8s`` is the int8 x int8 segmented scorer
-  (``csrc/q8s.cu``); ``normalize_classify_fused_forward`` is the f32
+  (``csrc/q8s_sm90.cu``, wgmma, planned by ``q8s_plan``);
+  ``normalize_classify_fused_forward`` is the f32
   fused L1 normalization + classifier over device-layout rows
   (``csrc/fused_classify.cu``), and ``normalize_classify_fused`` /
   ``normalize_classify_fused_nofeatgrad`` wrap it in autograd;
@@ -20,9 +21,9 @@ Counterpart of ``tspn_tpu/ops/pairwise.py``. Two halves:
   ``q8f_fused`` is the factored rel pass with the per-tracklet A-table
   add in its epilogue (``csrc/q8f_fused.cu``), which
   ``factored_classify_q8_fused`` runs after a q8s tracklet pass.
-  K1's variants, in ``csrc/q8s.cu`` beside it: ``normalize_classify_q8i8``
-  (block scales computed in the kernel) and ``normalize_classify_q8t``
-  (transposed operands); ``pair_probe`` is the raw int32 product of
+  K1's variants: ``normalize_classify_q8t`` (transposed operands, the same
+  kernel), ``normalize_classify_q8i8`` (block scales computed in the
+  kernel, ``csrc/q8s.cu``, dp4a); ``pair_probe`` is the raw int32 product of
   ``tools/bench_pair_kernels.py`` (``csrc/pair_probe.cu``, wgmma, planned
   by ``probe_plan``); ``normalize_classify_q8`` is the int8 x bf16 scorer
   (``csrc/q8_bf16.cu``).
@@ -616,19 +617,102 @@ def normalize_classify_q8s_plain(
     return acc * sw + b
 
 
-def _q8s_cuda(q, scales, qw_t, sw, b, geom) -> torch.Tensor:
-    p, d = q.shape
+# csrc/q8s_sm90.cu's tile: 128 rows x 144 output columns, D in chunks of 128
+# bytes; a tile's work is cut into at most 64 pieces
+Q8S_TILE_ROWS, Q8S_N, Q8S_CHUNK, Q8S_MAX_PIECES = 128, 144, 128, 64
+# q8s_plan's cost model, from design probes on an H100 SXM at 700 W: one SM
+# takes about 0.65 us for a chunk of a tile whose rows come by TMA, 3.9 us
+# where K6's producers stage them by loads; the split's int32 sums cross L2
+# twice (stored by the pieces, read by the fold kernel) at about 0.9 us a
+# MB, and the fold kernel adds about 5 us.
+Q8S_CHUNK_US = {"tma": 0.65, "loads": 3.9}
+Q8S_WS_US_PER_MB, Q8S_FOLD_US = 0.9, 5.0
+
+
+class Q8sPlan(NamedTuple):
+    """How ``csrc/q8s_sm90.cu`` runs one call (``q8s_plan``)."""
+    tiles: int       # row tiles x column blocks
+    segments: tuple  # (lo, hi) bytes of D of each segment, in fold order
+    pieces: tuple    # (segment, lo chunk, hi chunk) of a tile's work, in fold order
+    split: bool      # one work item a (tile, piece) and a fold kernel; else one a tile
+    staging: str     # how K6's xt reaches shared memory: "tma", "word" or "shift"
+    grid: int        # persistent blocks
+
+    @property
+    def items(self) -> int:
+        return self.tiles * (len(self.pieces) if self.split else 1)
+
+
+def _q8s_cuts(chunks: list):
+    """Every way to cut a tile's segments into shares of whole chunks of at
+    most ``size`` chunks each, about equal, as ``(size, pieces)``, from
+    whole segments down to pieces of one chunk (at most 64 pieces)."""
+    for size in range(max(chunks), 0, -1):
+        shares = [-(-c // size) for c in chunks]
+        if sum(shares) > Q8S_MAX_PIECES:
+            return
+        yield size, tuple((k, j * c // n, (j + 1) * c // n)
+                          for k, (c, n) in enumerate(zip(chunks, shares)) for j in range(n))
+
+
+def q8s_plan(p: int, r: int, d: int, geom, sms: int, transposed: bool = False) -> Q8sPlan:
+    """K1's (or, ``transposed``, K6's) plan for P rows of width D and R
+    outputs at ``geom`` on a card of ``sms`` SMs. A tile is one work item
+    that folds its segments in registers, unless there are fewer tiles
+    than SMs and a split takes less time by the cost model above: then a
+    tile's work is cut into pieces (each segment into shares of about
+    equal length; of the cuts ``_q8s_cuts`` offers, the one the model
+    times lowest), one work item each, and a second kernel folds them."""
+    hp, nb, blk = geom.dev_head_pad, geom.num_bow_blocks, geom.dev_block
+    segments = ((0, hp),) + tuple((hp + k * blk, hp + (k + 1) * blk) for k in range(nb))
+    chunks = [-(-(hi - lo) // Q8S_CHUNK) for lo, hi in segments]
+    tiles = -(-p // Q8S_TILE_ROWS) * -(-r // Q8S_N)
+    staging = ("tma" if not transposed or p % 16 == 0 else "word" if p % 4 == 0
+               else "shift")
+    chunk_us = Q8S_CHUNK_US["tma" if staging == "tma" else "loads"]
+    pieces = tuple((k, 0, c) for k, c in enumerate(chunks))
+    best_us, split = chunk_us * sum(chunks) * -(-tiles // sms), False
+    for size, cut in (_q8s_cuts(chunks) if tiles < sms else ()):
+        us = (chunk_us * -(-tiles * len(cut) // sms) * size + Q8S_FOLD_US
+              + Q8S_WS_US_PER_MB * 2 * len(cut) * p * r * 4 / 1e6)
+        if us < best_us:
+            best_us, pieces, split = us, cut, True
+    items = tiles * (len(pieces) if split else 1)
+    return Q8sPlan(tiles, segments, pieces, split, staging, min(items, sms))
+
+
+def _q8s_sm90(key: str, x, scales, qw_t, sw, b, geom, transposed: bool) -> torch.Tensor:
+    """Launch K1 (x = q (P, D), scales (P, 16) -> (P, R)) or K6 (x = xt (D,
+    P), scales_t (16, P) -> (R, P)) on ``csrc/q8s_sm90.cu`` as
+    ``q8s_plan`` cuts it."""
+    d, p = x.shape if transposed else x.shape[::-1]
     r = qw_t.shape[0]
     f32, i8 = torch.float32, torch.int8
-    _require("q8s", (q, scales, qw_t, sw, b), (i8, f32, i8, f32, f32),
-             ((p, d), (p, 16), (r, d), (r,), (r,)), aligned=(q, qw_t))
-    _require_geom("q8s", geom, d)
-    out = torch.empty((p, r), dtype=f32, device=q.device)
-    if p and r:
-        _launch("q8s", "q8s_library", "tspn_q8s_launch", q.device, (
-            q.data_ptr(), scales.data_ptr(), qw_t.data_ptr(), sw.data_ptr(),
-            b.data_ptr(), out.data_ptr(), p, r, d, geom.dev_head_pad, geom.dev_block))
+    s_shape, out_shape = ((16, p), (r, p)) if transposed else ((p, 16), (p, r))
+    _require(key, (x, scales, qw_t, sw, b), (i8, f32, i8, f32, f32),
+             (tuple(x.shape), s_shape, (r, d), (r,), (r,)), aligned=(x, qw_t))
+    _require_geom(key, geom, d)
+    if d >= 1 << 17:
+        raise ValueError(f"{key}: width {d} is not below 2^17")
+    out = torch.empty(out_shape, dtype=f32, device=x.device)
+    if not (p and r):
+        return out
+    plan = q8s_plan(p, r, d, geom, torch.cuda.get_device_properties(x.device).multi_processor_count,
+                    transposed)
+    # the split's pieces store their int32 sums in a slab each
+    ws = (torch.empty((len(plan.pieces), *out_shape), dtype=torch.int32, device=x.device)
+          if plan.split else out)
+    table = (ctypes.c_int32 * (3 * len(plan.pieces)))(*(v for pc in plan.pieces for v in pc))
+    _launch(key, "q8s_sm90_library", "tspn_q8s_sm90_launch", x.device, (
+        x.data_ptr(), scales.data_ptr(), qw_t.data_ptr(), sw.data_ptr(), b.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), ctypes.addressof(table), int(transposed), p, r, d,
+        geom.dev_head_pad, geom.dev_block, len(plan.pieces), int(plan.split),
+        int(plan.staging != "tma"), plan.grid))
     return out
+
+
+def _q8s_cuda(q, scales, qw_t, sw, b, geom) -> torch.Tensor:
+    return _q8s_sm90("q8s", q, scales, qw_t, sw, b, geom, transposed=False)
 
 
 def normalize_classify_q8s(q, scales, qw_t, sw, b, geom) -> torch.Tensor:
@@ -826,18 +910,7 @@ def _q8_bf16_cuda(q, head_scale, w_bf16_t, b, geom) -> torch.Tensor:
 
 
 def _q8t_cuda(xt, scales_t, qw_t, sw, b, geom) -> torch.Tensor:
-    d, p = xt.shape
-    r = qw_t.shape[0]
-    f32, i8 = torch.float32, torch.int8
-    _require("q8t", (xt, scales_t, qw_t, sw, b), (i8, f32, i8, f32, f32),
-             ((d, p), (16, p), (r, d), (r,), (r,)), aligned=(xt, qw_t))
-    _require_geom("q8t", geom, d)
-    out = torch.empty((r, p), dtype=f32, device=xt.device)
-    if p and r:
-        _launch("q8t", "q8t_library", "tspn_q8t_launch", xt.device, (
-            xt.data_ptr(), scales_t.data_ptr(), qw_t.data_ptr(), sw.data_ptr(),
-            b.data_ptr(), out.data_ptr(), p, r, d, geom.dev_head_pad, geom.dev_block))
-    return out
+    return _q8s_sm90("q8t", xt, scales_t, qw_t, sw, b, geom, transposed=True)
 
 
 def _pair_probe_cuda(x, w, mode) -> torch.Tensor:

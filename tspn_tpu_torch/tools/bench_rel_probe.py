@@ -8,7 +8,7 @@ Port of the JAX package's ``tools/bench_rel_probe.py``. ``--segments``
 segments of 32 x 31 ordered pairs give P rows (95,232 at the default) of
 D = 3,072 int8 columns, scored into R = 132 predicates. Legs:
 
-  q8s        K1 (``pairwise.normalize_classify_q8s``, dp4a) at rel_geom
+  q8s        K1 (``pairwise.normalize_classify_q8s``, wgmma) at rel_geom
   raw        Kr (``ops/rel.py::rel_s8``) int32 out, row grid, 2 stages
   mdma       Kr int32 out, persistent blocks with a 4-stage ring running
              across row tiles (the JAX tool's manual 4-slot DMA ring)

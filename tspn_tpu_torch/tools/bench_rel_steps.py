@@ -13,7 +13,7 @@ noted:
   v1_f32      f32 out, ``f32(acc) * sw + b``
   v2_side16   + the row scale, column 0 of a (P, 16) f32 sidecar
   v3_side128  as v2, the sidecar padded to (P, 128)
-  v4_q8s      K1 (``pairwise.normalize_classify_q8s``, dp4a) at rel_geom
+  v4_q8s      K1 (``pairwise.normalize_classify_q8s``, wgmma) at rel_geom
 
 Each leg's first result is held ``torch.equal`` to its plain version,
 then it is timed (``runtime.timing.median_ms``: CUDA events on the card)
