@@ -7,9 +7,9 @@ flax are absent: ``python -m pytest tests/test_torch_q8s_gpu.py -q``.
   path's three geometries, with a ragged row count and zero rows.
 * K1 and K6 (csrc/q8s_sm90.cu) equal their plain versions bit for bit,
   and K6 equals K1 transposed, at the six geometries of the port (tool,
-  rel, tracklet, expanded, ragged, VidOR) and at segments that end on 64
-  but not 128 bytes, each as q8s_plan cuts it, split into pieces and
-  unsplit.
+  rel, tracklet, expanded, ragged, VidOR), at segments that end on 64
+  but not 128 bytes, at K6's unshifted word staging and at one row of an
+  odd R, each as q8s_plan cuts it, split into pieces and unsplit.
 * The wrapper raises on operands the kernel does not take.
 * predict_segments selects the same top-k with the kernels as with the
   plain versions, launching q8s once per batch for q8f (its tracklet
@@ -61,6 +61,8 @@ SIX = {
     "ragged": (96 * 992 - 77, 132, EXPANDED),
     "vidor": (333, 132, None),
     "odd64": (1037, 132, tpw.BlockGeom(192, 2, 320)),  # segments end on 64 bytes
+    "word": (1036, 132, EXPANDED),  # K6's rows by unshifted word loads (P % 4 == 0)
+    "tiny": (1, 7, tpw.rel_geom()),  # one row, an odd R (no 8-byte stores)
 }
 CHUNK = 8192  # rows per plain call: a float64 copy of 95k x 11264 is 8.6 GB
 
