@@ -4,13 +4,20 @@ without one).
 Imports only torch, numpy and tspn_tpu_torch, so it runs where h5py and
 flax are absent: ``python -m pytest tests/test_torch_fused_classify_gpu.py -q``.
 
-* The kernel agrees with its plain PyTorch version within
+* The kernel (three-pass TF32 wgmma, csrc/fused_classify.cu) agrees with
+  its plain PyTorch version within
   ``|kernel - plain| <= 1e-5 * (|N(x)| @ |W| + |b|) + 1e-6`` per element,
-  at ragged row counts, at both layouts (C 35 and C 80), at R = 132 and
-  at an R that takes two column tiles. The two sum in different orders
-  (the kernel in one f32 FMA chain per output, the plain version through
-  the cuBLAS f32 GEMM with TF32 off), so the bound is relative to the
-  magnitude of the summed terms.
+  at ragged row counts, at both layouts (C 35 and C 80), at R = 132, at
+  R = 12 and at an R that takes three column tiles. The two sum in
+  different orders (the kernel on the tensor cores, folded per unit in
+  f32; the plain version through the cuBLAS f32 GEMM with TF32 off), so
+  the bound is relative to the magnitude of the summed terms.
+* Split and unsplit plans (``fused_plan``): P = 1, 63, 65, 129 and a
+  ragged 7,923 (cut into pieces of D and folded by the second kernel) and
+  the serve geometry's 15,872 rows (one block a tile), each within the
+  bound with zero rows and a zero BoW block, and a split call repeats bit
+  for bit.
+* A call after W changed in place (a training step) follows the new W.
 * The wrapper sends bf16 rows to K3's bf16 half (one launch of
   ``fused_classify_bf16``; tests/test_torch_bf16_gpu.py holds it), and
   raises on bf16 weights under f32 rows, on non-contiguous inputs and on a
@@ -115,3 +122,41 @@ def test_nofeatgrad_grads_kernel_vs_plain(cuda_device):
     # the backward is the same plain code on the same inputs
     assert torch.equal(grads[0][0], grads[1][0])
     assert torch.equal(grads[0][1], grads[1][1])
+
+
+# (objects C, outputs R, rows P): P 1, 63, 65, 129 and a ragged 7,923 (split
+# plans) and the serve geometry's 16 x 992 rows (unsplit), VidVRD and VidOR
+PLAN_CASES = [(35, 132, 1), (35, 132, 63), (35, 132, 65), (35, 12, 129), (80, 132, 129),
+              (35, 132, 7923), (80, 12, 7923), (35, 132, 16 * 992)]
+
+
+@pytest.mark.parametrize("c,r,p", PLAN_CASES)
+def test_fused_kernel_plans_within_bound(cuda_device, c, r, p):
+    layout = FeatureLayout.for_objects(c)
+    x, w, b = _inputs(layout, p, r, cuda_device, seed=p)
+    plan = tpw.fused_plan(p, r, layout,
+                          torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    assert plan.split == (p < 16 * 992)
+    out = tpw.normalize_classify_fused_forward(x, w, b, layout)
+    again = tpw.normalize_classify_fused_forward(x, w, b, layout)
+    ref = tpw.normalize_classify_fused_plain(x, w, b, layout)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    err = (out.double() - ref.double()).abs()
+    assert bool((err <= _bound(x, w, b, layout)).all()), float(err.max())
+
+
+def test_fused_kernel_follows_weights_changed_in_place(cuda_device):
+    """A training step changes W in place; the next call prepares W's TF32
+    halves from the new values."""
+    layout = FeatureLayout()
+    x, w, b = _inputs(layout, 300, 132, cuda_device)
+    first = tpw.normalize_classify_fused_forward(x, w, b, layout)
+    with torch.no_grad():
+        w.mul_(-2.0)
+    out = tpw.normalize_classify_fused_forward(x, w, b, layout)
+    ref = tpw.normalize_classify_fused_plain(x, w, b, layout)
+    torch.cuda.synchronize()
+    assert not torch.equal(out, first)
+    err = (out.double() - ref.double()).abs()
+    assert bool((err <= _bound(x, w, b, layout)).all()), float(err.max())

@@ -98,7 +98,11 @@ def q8_bf16_library() -> ctypes.CDLL:
 
 
 def fused_classify_library() -> ctypes.CDLL:
-    return _bound("fused_classify", "tspn_fused_classify_launch", 4, 5)
+    return _bound("fused_classify", "tspn_fused_classify_launch", 6, 4)
+
+
+def fused_classify_prep_library() -> ctypes.CDLL:
+    return _bound("fused_classify", "tspn_fused_classify_prep_launch", 2, 2)
 
 
 def fused_classify_bf16_library() -> ctypes.CDLL:

@@ -14,7 +14,8 @@ Counterpart of ``tspn_tpu/ops/pairwise.py``. Two halves:
   (``csrc/q8s_sm90.cu``, wgmma, planned by ``q8s_plan``);
   ``normalize_classify_fused_forward`` is the f32
   fused L1 normalization + classifier over device-layout rows
-  (``csrc/fused_classify.cu``), and ``normalize_classify_fused`` /
+  (``csrc/fused_classify.cu``, three-pass TF32 wgmma, planned by
+  ``fused_plan``), and ``normalize_classify_fused`` /
   ``normalize_classify_fused_nofeatgrad`` wrap it in autograd;
   on bf16 rows the same two ops run K3's bf16 half
   (``csrc/fused_classify_bf16.cu``, ``normalize_classify_fused_bf16``);
@@ -32,6 +33,7 @@ Counterpart of ``tspn_tpu/ops/pairwise.py``. Two halves:
 from __future__ import annotations
 
 import ctypes
+import heapq
 from functools import lru_cache
 from typing import NamedTuple
 
@@ -415,6 +417,123 @@ def _dispatch(name: str, lead: torch.Tensor, kernel, plain, *args) -> torch.Tens
     raise ValueError(f"{name}: no implementation for device {lead.device}")
 
 
+# csrc/fused_classify.cu's tile: 128 rows x 136 output columns, D in chunks
+# of 32 floats; the head is folded in shares of at most 1024 columns, and a
+# launch takes at most 32 units (shares and BoW blocks)
+FUSED_TILE_ROWS, FUSED_N, FUSED_CHUNK, FUSED_HEAD_SHARE, FUSED_MAX_UNITS = 128, 136, 32, 1024, 32
+# fused_plan's cost model, from the kernel's design (NVIDIA H100 SXM, 700 W):
+# one SM takes about 0.9 us for a chunk of a tile (4 k8 steps x 3 TF32
+# passes of 64 x 136 for each of two warpgroups at 494.7 TFLOP/s); the
+# split's f32 slabs cross L2 twice at about 0.9 us a MB, and the fold
+# kernel adds about 5 us.
+FUSED_CHUNK_US, FUSED_WS_US_PER_MB, FUSED_FOLD_US = 0.9, 0.9, 5.0
+
+
+class FusedPlan(NamedTuple):
+    """How ``csrc/fused_classify.cu`` runs one call (``fused_plan``)."""
+    tiles: int     # row tiles x column tiles
+    units: tuple   # (first chunk, end chunk, scaled) of each unit, in fold order
+    pieces: tuple  # (first unit, end unit) of each piece, in fold order
+
+    @property
+    def split(self) -> bool:
+        return len(self.pieces) > 1
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * len(self.pieces)
+
+    def table(self) -> tuple:
+        """The kernel's unit table: (first chunk, end chunk, scaled, piece)
+        of each unit in fold order."""
+        return tuple((lo, hi, s, i) for i, (a, e) in enumerate(self.pieces)
+                     for lo, hi, s in self.units[a:e])
+
+
+def fused_units(layout) -> tuple:
+    """The fold units of K3's kernel: the head in about equal shares of at
+    most ``FUSED_HEAD_SHARE`` columns (scale 1), then each BoW block (scaled
+    by its 1/L1), as (first chunk, end chunk, scaled) of 32 columns."""
+    hp, nb, blk = layout.dev_head_pad, layout.num_bow_blocks, layout.dev_block
+    c, head = FUSED_CHUNK, layout.dev_head_pad // FUSED_CHUNK
+    shares = -(-hp // FUSED_HEAD_SHARE)
+    cuts = [j * head // shares for j in range(shares + 1)]
+    units = [(a, b, 0) for a, b in zip(cuts, cuts[1:]) if b > a]
+    units += [((hp + k * blk) // c, (hp + (k + 1) * blk) // c, 1) for k in range(nb)]
+    return tuple(units)
+
+
+def _partitions(lengths: list, n: int) -> tuple:
+    """The cut of ``lengths`` into ``n`` contiguous groups whose largest sum
+    is least (the first such cut, by dynamic programming) -> ((lo, hi), ...)."""
+    m = len(lengths)
+    pre = [0]
+    for v in lengths:
+        pre.append(pre[-1] + v)
+    best = {(0, 0): (0, None)}  # (groups, units) -> (largest sum, last cut)
+    for k in range(1, n + 1):
+        for j in range(k, m + 1):
+            options = [(max(best[(k - 1, i)][0], pre[j] - pre[i]), i)
+                       for i in range(k - 1, j) if (k - 1, i) in best]
+            best[(k, j)] = min(options)
+    cuts, j = [], m
+    for k in range(n, 0, -1):
+        i = best[(k, j)][1]
+        cuts.append((i, j))
+        j = i
+    return tuple(reversed(cuts))
+
+
+def _makespan(tiles: int, sizes: list, sms: int) -> int:
+    """Chunks the busiest SM runs when the blocks (piece-major, one block an
+    SM at a time) go to whichever SM frees first."""
+    free = [0] * min(sms, tiles * len(sizes))
+    for size in sizes:
+        for _ in range(tiles):
+            heapq.heapreplace(free, free[0] + size)
+    return max(free)
+
+
+@lru_cache(maxsize=256)
+def fused_plan(p: int, r: int, layout, sms: int) -> FusedPlan:
+    """K3's plan for P rows and R outputs at ``layout`` on a card of ``sms``
+    SMs. Every tile runs all units in one block, unless cutting the units
+    into pieces (each piece's units contiguous, the cut that least loads
+    its largest piece) takes less time by the cost model above: then a block
+    runs one (tile, piece) and a second kernel folds the pieces."""
+    units = fused_units(layout)
+    lengths = [hi - lo for lo, hi, _s in units]
+    tiles = -(-p // FUSED_TILE_ROWS) * -(-r // FUSED_N)
+    best = None
+    for n in range(1, len(units) + 1 if tiles < sms else 2):
+        pieces = _partitions(lengths, n)
+        sizes = [sum(lengths[a:b]) for a, b in pieces]
+        us = FUSED_CHUNK_US * _makespan(tiles, sizes, sms)
+        if n > 1:
+            us += FUSED_FOLD_US + FUSED_WS_US_PER_MB * 2 * n * p * r * 4 / 1e6
+        if best is None or us < best[0]:
+            best = (us, pieces)
+    return FusedPlan(tiles, units, best[1])
+
+
+def _tf32_weights(w_dev: torch.Tensor) -> torch.Tensor:
+    """K3's B operand (2 n_pad, D) f32 from W (D, R): tf32(W)^T and
+    tf32(W - tf32(W))^T, prepared on the card by the prep kernel (each
+    call: a training step changes W)."""
+    d, r = w_dev.shape
+    n_pad = -(-r // FUSED_N) * FUSED_N
+    wt = torch.empty((2 * n_pad, d), dtype=torch.float32, device=w_dev.device)
+    from tspn_tpu_torch.ops import _cuda
+
+    lib = _cuda.fused_classify_prep_library()
+    with torch.cuda.device(w_dev.device):
+        stream = torch.cuda.current_stream(w_dev.device).cuda_stream
+        err = lib.tspn_fused_classify_prep_launch(w_dev.data_ptr(), wt.data_ptr(), d, r,
+                                                  ctypes.c_void_p(stream))
+    _cuda.check(err, "tspn_fused_classify_prep_launch")
+    return wt
+
+
 def _fused_classify_cuda(x, w_dev, b, layout) -> torch.Tensor:
     p, d = x.shape
     r = w_dev.shape[1]
@@ -422,14 +541,23 @@ def _fused_classify_cuda(x, w_dev, b, layout) -> torch.Tensor:
     f32 = torch.float32
     _require("fused_classify", (x, w_dev, b), (f32, f32, f32), ((p, d), (d, r), (r,)),
              aligned=(x,))
-    if (d != layout.device_dim or hp % 32 or blk % 32
-            or layout.num_bow_blocks > 15):
+    if (d != layout.device_dim or hp % FUSED_CHUNK or blk % FUSED_CHUNK
+            or len(fused_units(layout)) > FUSED_MAX_UNITS):
         raise ValueError(f"fused_classify: layout {layout} does not fit width {d}")
     out = torch.empty((p, r), dtype=f32, device=x.device)
-    if p:
-        _launch("fused_classify", "fused_classify_library", "tspn_fused_classify_launch",
-                x.device, (x.data_ptr(), w_dev.data_ptr(), b.data_ptr(), out.data_ptr(),
-                           p, r, d, hp, blk))
+    if not (p and r):
+        return out
+    wt = _tf32_weights(w_dev)
+    plan = fused_plan(p, r, layout,
+                      torch.cuda.get_device_properties(x.device).multi_processor_count)
+    # the split's pieces store their f32 folds in a slab each
+    ws = (torch.empty((len(plan.pieces), p, r), dtype=f32, device=x.device)
+          if plan.split else out)
+    quads = plan.table()
+    table = (ctypes.c_int32 * (4 * len(quads)))(*(v for q in quads for v in q))
+    _launch("fused_classify", "fused_classify_library", "tspn_fused_classify_launch",
+            x.device, (x.data_ptr(), wt.data_ptr(), b.data_ptr(), out.data_ptr(),
+                       ws.data_ptr(), ctypes.addressof(table), p, r, d, len(quads)))
     return out
 
 

@@ -12,9 +12,9 @@ import time
 
 import torch
 
-# published NVIDIA H100 SXM peaks (dense): HBM3 bytes/s, int8 and bf16
-# tensor-core op/s, f32 op/s on the CUDA cores
-PEAK = {"bytes": 3.35e12, "int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+# published NVIDIA H100 SXM peaks (dense): HBM3 bytes/s, int8, bf16 and
+# TF32 tensor-core op/s, f32 op/s on the CUDA cores
+PEAK = {"bytes": 3.35e12, "int8": 1979e12, "bf16": 989e12, "tf32": 494.7e12, "f32": 67e12}
 WARMUP, ITERS, REPS = 3, 20, 5
 
 
