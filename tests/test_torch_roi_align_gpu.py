@@ -4,10 +4,15 @@ without one).
 Imports only torch, numpy and tspn_tpu_torch:
 ``python -m pytest tests/test_torch_roi_align_gpu.py -q``.
 
-* K7 agrees with ``roi_align_plain`` within 1e-5 * |plain| + 1e-6 per
-  element: at the boundary boxes of tests/test_roi_align.py at (7, 2),
-  (4, 1) and (14, 2), with C a multiple of 4 (float4 taps) and not
-  (scalar taps); and over a batch of images with a ragged RoI count.
+* K7 equals ``roi_align_plain`` bit for bit (its column-window walk does
+  the plain version's float operations in its order): at the boundary
+  boxes of tests/test_roi_align.py at (7, 2), (4, 1) and (14, 2), with C
+  a multiple of 4 (float4 taps) and not (scalar taps); over a batch of
+  images with a ragged RoI count; and, in f32 and bf16, at 8 channels a
+  thread (bf16 C = 8: 16-byte accesses), 4 (C = 12) and 1 (C = 6), for a
+  RoI as wide as the map, sub-pixel RoIs, RoIs past every edge, out 7
+  with s 4 (28 samples a side, the mean's four partial sums) and s 3 (the
+  mean's 1/9 a multiply).
 * K7's bf16 half equals ``roi_align_plain`` on the same bf16 map (the
   map widened to f32, the output rounded once) bit for bit, at the same
   boxes and over a batch.
@@ -49,12 +54,6 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _assert_agrees(out, ref):
-    assert out.shape == ref.shape
-    bound = 1e-5 * ref.abs() + 1e-6
-    assert bool(((out - ref).abs() <= bound).all()), float((out - ref).abs().max())
-
-
 @pytest.mark.parametrize("c", [8, 6])
 @pytest.mark.parametrize("out_size,s", [(7, 2), (4, 1), (14, 2)])
 def test_kernel_agrees_with_plain_at_the_borders(cuda_device, out_size, s, c):
@@ -67,7 +66,7 @@ def test_kernel_agrees_with_plain_at_the_borders(cuda_device, out_size, s, c):
     ref = tra.roi_align_plain(feats, boxes, idx, out_size, s)
     torch.cuda.synchronize()
     assert tra.LAUNCHES["roi_align"] == before + 1
-    _assert_agrees(out, ref)
+    assert torch.equal(out, ref)
 
 
 def test_kernel_agrees_over_a_batch_with_ragged_rois(cuda_device):
@@ -82,7 +81,7 @@ def test_kernel_agrees_over_a_batch_with_ragged_rois(cuda_device):
     ref = torch.cat([tra.roi_align_plain(feats, boxes[k:k + 64], idx[k:k + 64], 14, 2)
                      for k in range(0, r, 64)])
     torch.cuda.synchronize()
-    _assert_agrees(out, ref)
+    assert torch.equal(out, ref)
 
 
 def test_out_of_range_image_pools_zeros(cuda_device):
@@ -249,3 +248,47 @@ def test_no_gradient_runs_no_backward(cuda_device):
     assert not out.requires_grad
     assert tra.LAUNCHES["roi_align"] == before["roi_align"] + 1
     assert tra.LAUNCHES["roi_align_backward"] == before["roi_align_backward"]
+
+
+# the edge boxes on a 20 x 24 map: as wide as the map, sub-pixel, and past
+# each edge (left, top, right, bottom, all four)
+EDGE_BOXES = [
+    [0.0, 2.0, 24.0, 18.0],
+    [3.3, 4.1, 3.55, 4.3],
+    [10.0, 10.0, 10.2, 10.9],
+    [-6.0, 3.0, 4.0, 9.0],
+    [5.0, -7.0, 11.0, 2.0],
+    [19.0, 5.0, 31.0, 12.0],
+    [2.0, 15.0, 9.0, 27.0],
+    [-5.0, -5.0, 29.0, 25.0],
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,vec", [(8, None), (12, 4), (6, 1)])
+@pytest.mark.parametrize("out_size,s", [(14, 2), (7, 4), (4, 1), (5, 3)])
+def test_forward_equals_plain_at_each_width(cuda_device, out_size, s, c, vec, dtype):
+    gen = torch.Generator().manual_seed(c * 16 + s)
+    feats = torch.rand((2, 20, 24, c), generator=gen).to(cuda_device, dtype)
+    boxes = torch.tensor(BOXES + EDGE_BOXES, device=cuda_device)
+    idx = (torch.arange(len(boxes), device=cuda_device) % 2).to(torch.int32)
+    want = vec or (8 if dtype == torch.bfloat16 else 4)
+    assert tra._vec(c, feats, widest=16 // feats.element_size()) == want
+    key = "roi_align_bf16" if dtype == torch.bfloat16 else "roi_align"
+    before = tra.LAUNCHES[key]
+    out = tra.roi_align(feats, boxes, idx, out_size, s)
+    ref = tra.roi_align_plain(feats, boxes, idx, out_size, s)
+    torch.cuda.synchronize()
+    assert tra.LAUNCHES[key] == before + 1
+    assert out.dtype == dtype and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_out_of_range_image_pools_zeros_at_16_bytes(cuda_device, dtype):
+    feats = torch.rand((2, 8, 8, 16), device=cuda_device).to(dtype)
+    boxes = torch.tensor([[1.0, 1.0, 5.0, 5.0]] * 3, device=cuda_device)
+    idx = torch.tensor([0, 2, -1], dtype=torch.int32, device=cuda_device)
+    out = tra.roi_align(feats, boxes, idx, 7, 4)
+    ref = tra.roi_align_plain(feats, boxes[:1], idx[:1], 7, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:1], ref) and not out[1:].any()

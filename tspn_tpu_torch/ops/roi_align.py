@@ -180,11 +180,15 @@ def _check_cuda_operands(features, boxes, batch_idx, output_size, sampling_ratio
                          "exceeds the kernel's 128 samples per axis")
 
 
-def _vec(c: int, *tensors) -> int:
-    """4 channels a thread where C and every row base allow the vector
-    access (16 bytes in f32, 8 in bf16), else 1."""
-    ok = c % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
-    return 4 if ok else 1
+def _vec(c: int, *tensors, widest: int = 4) -> int:
+    """Channels a thread: the widest of ``widest``, 4 and 1 that divides C
+    and whose vector access every tensor's base allows (K7's forward takes
+    16 bytes: 8 channels of a bf16 map, 4 of an f32 one; its backward 4 or
+    1)."""
+    for vec in (widest, 4):
+        if c % vec == 0 and all(t.data_ptr() % (vec * t.element_size()) == 0 for t in tensors):
+            return vec
+    return 1
 
 
 def _roi_align_cuda(features, boxes, batch_idx, output_size, sampling_ratio):
@@ -207,7 +211,8 @@ def _roi_align_cuda(features, boxes, batch_idx, output_size, sampling_ratio):
         stream = torch.cuda.current_stream(features.device).cuda_stream
         err = getattr(lib, entry)(
             features.data_ptr(), boxes.data_ptr(), batch_idx.data_ptr(), out.data_ptr(),
-            r, n, h, w, c, output_size, sampling_ratio, _vec(c, features),
+            r, n, h, w, c, output_size, sampling_ratio,
+            _vec(c, features, out, widest=16 // features.element_size()),
             ctypes.c_void_p(stream),
         )
     _cuda.check(err, entry)
