@@ -32,8 +32,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
    kernel, kernel at depth 0 twice, kernel, plain; SERVE_TURNS) after one
    untimed run of each; each batch must launch q8s once (tracklet pass)
    and q8f_fused once (rel pass), and the top-k selections must be equal,
-   at either depth; one more kernel run at each depth under
-   torch.profiler gives the device's busy share;
+   at either depth; one more kernel run at each depth in a traced run
+   (see phase 15) gives the device's busy share;
 6. serve q8: the same over expanded int8 rows, one q8s launch per batch;
 7. report the build of the fused_classify kernel
    (tspn_tpu_torch/csrc/fused_classify.cu, three-pass TF32 wgmma);
@@ -58,13 +58,13 @@ Phases, in order; any failure raises and the exit code is nonzero:
     kernel, plain) from the same carried-across init; each kernel run's
     step 1 losses must agree with plain's to rtol 1e-4, every step to
     rtol 1e-3, the last loss must be below the first, and the kernel
-    must launch once per step; a shorter kernel run under
-    torch.profiler gives the device's busy share;
+    must launch once per step; a shorter kernel run in a traced run
+    gives the device's busy share;
 11. serve PPN-pruned (configs/tspn_config.yaml with PRUNE_AT_INFERENCE):
     the segments of phases 5 and 6 through a model with the PPN head
     (35 -> 64 -> 35, seeded init carried across), NUM_PAIR_PROPOSALS 256,
     kernel and plain in turns; the same launches per batch as unpruned,
-    equal selections, one profiled run;
+    equal selections, one traced run;
 12. train PPN: phase 10 with the PPN head and its loss; loss_rel and
     loss_pair at step 1 agree to rtol 1e-4 and every step to 1e-3, and
     the last total loss is below the first;
@@ -85,8 +85,11 @@ Phases, in order; any failure raises and the exit code is nonzero:
     two timed runs, one K7 launch per batch, every frame keeping
     detections; K7 and the plain RoIAlign on the same backbone features
     give the same detections apart from near-ties; one detect_tta batch
-    and one roi_classeme call (one launch each); one profiled run for the
-    busy share and K7's share of the device time;
+    and one roi_classeme call (one launch each); one traced run
+    (benchmark.trace's Tracer and DeviceTrace) for the busy share, K7's
+    share of the device time and the summary of the port's spans (each
+    tspn.* span's count, host seconds, self seconds and the device's idle
+    seconds inside it);
 16. report the builds of csrc/q8s_sm90.cu (K6), csrc/q8s.cu (K4),
     csrc/q8_bf16.cu (K5) and csrc/pair_probe.cu (the probe, wgmma);
 17. hold K4 (q8i8), K5 (q8bf), K6 (q8t) and the probe against their plain
@@ -136,7 +139,7 @@ Phases, in order; any failure raises and the exit code is nonzero:
     storage layout (bf16 Linear, no kernel of the port), and 24 fused
     bf16 training steps kernel against plain in turns (step 1 within
     rtol 1e-3, every step 1e-2, the loss falls), each with rates, a
-    profiled pass and its host-to-device copy time;
+    traced pass and its host-to-device copy time;
 24. report the build of csrc/roi_probes.cu (T-roi 1-3) and hold
     roi_sep_fused, roi_selector and roi_constg against their plain
     versions at the RoIAlign tools' defaults (4 x 256 RoIs, 40 x 40 x
@@ -177,12 +180,15 @@ Phases, in order; any failure raises and the exit code is nonzero:
     kernel, plain), in f32 and then in bf16 (--bf16): step-1 losses
     kernel against plain within rtol 1e-4 (bf16: 1e-2), every loss
     finite; steps/s the median of each side's runs (a run's rate over its
-    steps after the first); one profiled step for the busy share and K7's
-    forward and backward shares; peak memory; the checkpoint of the first
-    kernel run reloads into a detector that detects;
+    steps after the first); one traced step for the busy share, K7's
+    forward and backward shares and the summary of the port's spans;
+    peak memory; a traced f32 run of train_detector's own loop
+    (DET_TRAIN_TRACED_STEPS steps) whose summary holds one tspn.input_wait
+    span a step; the checkpoint of the first kernel run reloads into a
+    detector that detects;
 29. serve the bf16 detector: phase 15 with the model in bf16 (K7's bf16
     half against the plain bf16 RoIAlign in turns, frames/s, the same
-    detections apart from near-ties, TTA, classeme, a profiled pass).
+    detections apart from near-ties, TTA, classeme, a traced pass).
 
 Convolutions and matrix products run in full f32 (TF32 off throughout).
 The kernel launches of the main path are counted from zero before each
@@ -268,6 +274,7 @@ K7_BACKWARD_CASES = (("train", 4, 40, 40, 1024, 512, 14, 2, "train"),
                      ("border_4x1", 1, 20, 24, 1024, 8, 4, 1, "border"))
 # detector training: seeded 480 x 640 records, the steps of each run
 DET_TRAIN_RECORDS, DET_TRAIN_STEPS, DET_TRAIN_HW = 16, 5, (480, 640)
+DET_TRAIN_TRACED_STEPS = 2  # the traced run of train_detector's loop
 # the detector: 640 x 640 letterboxed frames in batches of 8
 # (tools/run_pipeline.py and detect_video_frames defaults)
 DET_FRAMES, DET_BATCH, DET_SIZE = 20, 8, 640
@@ -578,45 +585,12 @@ def check_output(out: dict, dataset) -> None:
                 raise AssertionError(f"{key}: bad predicate {trip}")
 
 
-def profile_run(fn, watch: tuple = ()) -> dict:
-    """``fn()`` once under torch.profiler: device busy share and the
-    largest device-side entries (kernels and copies; the CPU ops that
-    launched them are left out so no time counts twice), and the summed
-    device time of the entries whose name holds each string of ``watch``.
-    A first, empty profile absorbs the tracer's start-up."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=activities):
-        torch.cuda.synchronize()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=activities) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    rows = [
-        (e.key, e.self_device_time_total / 1e3)
-        for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-    ]
-    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
-    device_ms = sum(ms for _k, ms in rows)
-    result = {"wall_s": wall_s, "device_ms": device_ms,
-              "device_busy_share": device_ms / (wall_s * 1e3) if device_ms else None,
-              "top_device_ms": rows[:6]}
-    if watch:
-        result["watched_device_ms"] = {
-            w: sum(ms for k, ms in rows if w in k) for w in watch}
-    return result
-
-
 def phase_serve(label: str, dataset, model, dev, launches_per_batch: dict,
                 compare=same_selection, **extra) -> dict:
     """predict_segments with the kernels and with the plain versions, and
     the kernels at pipeline_depth 2 (the default) and 0, in turns
     (SERVE_TURNS), after one untimed run of each variant; then one
-    profiled kernel run at each depth (its host-to-device copies summed
+    traced kernel run at each depth (its host-to-device copies summed
     apart). Every kernel run selects the same top-k, at either depth.
     ``launches_per_batch`` maps each kernel to its launches per batch;
     ``extra`` goes to predict_segments (PPN pruning)."""
@@ -672,7 +646,8 @@ def phase_serve(label: str, dataset, model, dev, launches_per_batch: dict,
         ties = compare(outs["kernel"], outs["plain"])
     except AssertionError as exc:
         raise AssertionError(f"serve {label}: {exc}") from None
-    prof = {f"depth{depth}": profile_run(lambda: run("kernel", depth), watch=(COPY,))
+    prof = {f"depth{depth}": traced_run(f"serve {label} depth {depth}",
+                                        lambda: run("kernel", depth), watch=(COPY,))
             for depth in (2, 0)}
     result = {"batches": n_batches, "pairs": rows, "rows_with_padding": padded,
               "feature_bytes": feat_bytes, "loader_s": loader_s,
@@ -783,7 +758,7 @@ def phase_train(label: str, dataset, dev, ppn: bool = False,
     """Fused training (with the PPN head and its loss under ``ppn``; in
     ``dtype``) from the same init in turns, plain, kernel, kernel, plain,
     so neither side always runs first on a shared host; then a shorter
-    profiled kernel run. Each kernel run's step-1 losses agree with the
+    traced kernel run. Each kernel run's step-1 losses agree with the
     first plain run's to rtol ``rtol[0]``, every step to ``rtol[1]``, for
     the total and for each loss term; the last total loss is below the
     first. The rates are the mean of each side's two runs."""
@@ -825,7 +800,7 @@ def phase_train(label: str, dataset, dev, ppn: bool = False,
     lk, lp = series["loss"]
     if not (lk[-1] < lk[0] and lp[-1] < lp[0]):
         raise AssertionError(f"train {label}: the loss did not fall: {lk}")
-    prof = profile_run(lambda: run(False, PROFILED_STEPS), watch=(COPY,))
+    prof = traced_run(f"train {label}", lambda: run(False, PROFILED_STEPS), watch=(COPY,))
     report = {"steps": TRAIN_STEPS, "batch": TRAIN["batch_size"],
               "losses_kernel": {k: v[0] for k, v in series.items()},
               "losses_plain": {k: v[1] for k, v in series.items()},
@@ -992,49 +967,42 @@ def same_detections_but_ties(kernel: dict, plain: dict) -> int:
     return swapped
 
 
-def detect_stage_seconds(model, frames, dev) -> dict:
-    """One detect_video_frames pass with host-clock timers (synchronized
-    before and after) around the backbone, the RPN's NMS, RoIAlign, the
-    res5 head and the final class-aware NMS; -> seconds per stage, their
-    call counts, and the pass's wall time."""
-    from tspn_tpu_torch.detection import rcnn, rpn
-    from tspn_tpu_torch.pipeline import detect_video_frames
+def traced_run(label: str, fn, watch: tuple = ()) -> dict:
+    """``fn()`` once in the benchmark's traced window (its device work
+    waited for inside it), reduced by ``benchmark.trace.DeviceTrace``: the
+    window, the device's busy time (the union of its activities), the
+    summed device time, the largest device entries, the summed device time
+    of the entries whose name holds each string of ``watch``, and the
+    port's spans (``benchmark.spans.summary``), which are logged. The
+    busy share is the union of device activity over the window, as the
+    benchmark's ``device_idle_share`` reads it."""
+    from benchmark.spans import summary
+    from benchmark.trace import DeviceTrace, Tracer
 
-    spent = {}
-
-    def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            sec, calls = spent.get(name, (0.0, 0))
-            spent[name] = (sec + time.perf_counter() - t0, calls + 1)
-            return out
-        return wrapper
-
-    saved = (model.features, model.roi_pool, rpn.nms, rcnn.nms)
-    model.features = timed("backbone", model.features)
-    model.roi_pool = timed("roi_align", model.roi_pool)
-    model.res5.forward = timed("res5", model.res5.forward)
-    rpn.nms = timed("rpn_nms", rpn.nms)
-    rcnn.nms = timed("detect_nms", rcnn.nms)
-    try:
+    tracer = Tracer(True)
+    with tracer.window():
+        fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        detect_video_frames(model, frames, device=dev, batch_size=DET_BATCH)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        model.features, model.roi_pool, rpn.nms, rcnn.nms = saved
-        del model.features, model.res5.forward  # back to the class's methods
-    return {"wall_s": wall, **{k: {"s": v[0], "calls": v[1]} for k, v in spent.items()}}
+    dt = DeviceTrace.from_profiler(tracer.prof)
+    spans = summary(dt)
+    if spans:
+        log(f"{label} spans (count, host s, self s, device idle s inside):")
+    for name, row in spans.items():
+        log(f"  {name:<18} {row['count']:6d} {row['host_s']:9.4f} {row['self_s']:9.4f} "
+            f"{row['idle_s']:9.4f}")
+    device_ms = dt.device_s(lambda name, op: True) * 1e3
+    return {"wall_s": dt.window_s, "device_ms": device_ms,
+            "device_busy_share": dt.busy_s() / dt.window_s,
+            "top_device_ms": [[k, v * 1e3] for k, v in dt.device_ops(6)],
+            "watched_device_ms": {w: dt.device_s(lambda name, op, w=w: w in name) * 1e3
+                                  for w in watch},
+            "spans": spans}
 
 
 def phase_detect(dev, dtype=torch.float32) -> dict:
     """Detector inference at full width through detect_video_frames, with
     K7 and with the plain RoIAlign in turns; the K7-vs-plain detections on
-    shared features; one TTA batch, one classeme call, one profiled run.
+    shared features; one TTA batch, one classeme call, one traced run.
     A bf16 model runs K7's bf16 half."""
     from tspn_tpu_torch.ops import roi_align as ra
     from tspn_tpu_torch.pipeline import detect_video_frames
@@ -1095,11 +1063,10 @@ def phase_detect(dev, dtype=torch.float32) -> dict:
             torch.isfinite(classeme).all()):
         raise AssertionError(f"roi_classeme: bad output {tuple(classeme.shape)}")
     del feats, classeme
-    prof = profile_run(
-        lambda: detect_video_frames(model, frames, device=dev, batch_size=DET_BATCH),
+    prof = traced_run(
+        label, lambda: detect_video_frames(model, frames, device=dev, batch_size=DET_BATCH),
         watch=("roi_align",))
     k7_ms = prof["watched_device_ms"]["roi_align"]
-    stages = detect_stage_seconds(model, frames, dev)
     timed_s = DET_FRAMES / statistics.median(runs["kernel"])
     result = {"dtype": str(dtype), "frames": DET_FRAMES, "batch": DET_BATCH, "size": DET_SIZE,
               "batches": n_batches, "kept_detections": kept,
@@ -1111,19 +1078,17 @@ def phase_detect(dev, dtype=torch.float32) -> dict:
               # the profiler slows the host's launches; the device time over
               # an unprofiled pass's wall is the nearer busy share
               "device_busy_share_unprofiled": prof["device_ms"] / (timed_s * 1e3),
-              "stage_seconds": stages,
               "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
               "profile": prof,
-              # warm-up, two timed kernel runs, the profiled and the stage-timed
-              # run: one launch per batch each; the shared-features detect,
-              # TTA and classeme once
-              "want_launches": 5 * n_batches + 3}
+              # warm-up, two timed kernel runs and the traced run: one
+              # launch per batch each; the shared-features detect, TTA and
+              # classeme once
+              "want_launches": 4 * n_batches + 3}
     log(f"{label}: {kept} detections kept over {DET_FRAMES} frames, every frame "
         f"keeps some; K7 and plain on shared features equal apart from {ties} "
         f"near-tie slots; TTA keeps {tta_kept}; frames/s kernel {runs['kernel']} "
         f"plain {runs['plain']}")
     log(f"{label} profile: {json.dumps(prof)}")
-    log(f"{label} stages (host clock, synchronized): {json.dumps(stages)}")
     return result
 
 
@@ -1810,7 +1775,7 @@ def detector_train_records(n: int, seed: int) -> list:
 
 def phase_detector_train(dev) -> dict:
     """Detector training at full width through train_detector, K7 and the
-    plain RoIAlign in turns, in f32 and bf16; a profiled step per type;
+    plain RoIAlign in turns, in f32 and bf16; a traced step per type;
     the first kernel run's checkpoint reloads into a detector that
     detects."""
     import logging
@@ -1861,13 +1826,14 @@ def phase_detector_train(dev) -> dict:
         if max(diff.values()) > rtol:
             raise AssertionError(f"detector train {dtype_name}: step-1 losses kernel "
                                  f"{first['kernel']} plain {first['plain']} beyond rtol {rtol}")
-        # one profiled step of the kernel-run model (a warm-up step first)
+        # one traced step of the kernel-run model (a warm-up step first)
         batch = dt.batch_to_device(make_batch(records[: cfg.ims_per_batch], cfg), dev)
         optimizer, scheduler = dt.build_detector_optimizer(kept_model.parameters(), cfg)
         dt.detector_train_step(kept_model, optimizer, scheduler, batch)
-        prof = profile_run(lambda: dt.detector_train_step(kept_model, optimizer, scheduler,
-                                                          batch),
-                           watch=("roi_align_kernel", "roi_align_backward_kernel"))
+        prof = traced_run(f"detector train {dtype_name}",
+                          lambda: dt.detector_train_step(kept_model, optimizer, scheduler,
+                                                         batch),
+                          watch=("roi_align_kernel", "roi_align_backward_kernel"))
         del kept_model, optimizer, scheduler, batch
         fwd_ms = prof["watched_device_ms"]["roi_align_kernel"]
         bwd_ms = prof["watched_device_ms"]["roi_align_backward_kernel"]
@@ -1886,9 +1852,30 @@ def phase_detector_train(dev) -> dict:
             f"{first['kernel']} (max rel diff to plain {max(diff.values()):.3e}); steps/s "
             f"kernel {runs['kernel']} plain {runs['plain']}; peak {peak} GB; K7 forward "
             f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms of {prof['device_ms']:.1f} ms device "
-            f"time in a profiled step")
+            f"time in a traced step")
         log(f"detector train {dtype_name} profile: {json.dumps(prof)}")
         torch.cuda.empty_cache()
+
+    # train_detector's own loop traced (f32, K7): its wait for each batch
+    # from the producer thread is a tspn.input_wait span and input_wait_s
+    loop_cfg = DetectorTrainConfig(max_iter=DET_TRAIN_TRACED_STEPS, log_every=1)
+    trained = []
+    prof = traced_run("detector train loop f32", lambda: trained.append(dt.train_detector(
+        records, det_cfg, loop_cfg, seed=SEED, logger=quiet, device=dev)))
+    waits = prof["spans"].get("tspn.input_wait", {})
+    hist = trained[0][1]
+    if waits.get("count") != DET_TRAIN_TRACED_STEPS or len(
+            hist["input_wait_s"]) != DET_TRAIN_TRACED_STEPS:
+        raise AssertionError(f"detector train loop: {waits} input-wait spans, "
+                             f"input_wait_s {hist['input_wait_s']}, want "
+                             f"{DET_TRAIN_TRACED_STEPS} of each")
+    result["traced_loop"] = {"steps": DET_TRAIN_TRACED_STEPS,
+                             "input_wait_s": hist["input_wait_s"],
+                             "step_seconds": hist["step_seconds"], "profile": prof}
+    log(f"detector train loop f32, traced: input_wait_s {hist['input_wait_s']} "
+        f"(host clock), tspn.input_wait {waits}")
+    del trained, hist
+    torch.cuda.empty_cache()
 
     # the checkpoint reloads into a detector that detects
     model = seeded_detector(dev, state_dict=load_detector_checkpoint(ckpt))
@@ -2132,12 +2119,12 @@ def main() -> int:
     (det_train, detect_bf16), counts_train = main_path("detector training + bf16 detect",
                                                        detector_train_and_bf16_serve)
     # per kernel training run: one forward and one backward a step; the
-    # profiled step and its warm-up likewise; the reloaded checkpoint's
-    # detect batch one f32 forward
+    # traced step and its warm-up likewise; the traced f32 loop's steps
+    # likewise; the reloaded checkpoint's detect batch one f32 forward
     steps = 2 * DET_TRAIN_STEPS + 2
-    want_train = {"roi_align": steps + 1,
+    want_train = {"roi_align": steps + DET_TRAIN_TRACED_STEPS + 1,
                   "roi_align_bf16": steps + detect_bf16["want_launches"],
-                  "roi_align_backward": 2 * steps}
+                  "roi_align_backward": 2 * steps + DET_TRAIN_TRACED_STEPS}
     if {k: v for k, v in counts_train.items() if v} != want_train:
         raise AssertionError(f"detector training + bf16 detect launches {counts_train}, "
                              f"want {want_train}")

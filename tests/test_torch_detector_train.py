@@ -317,6 +317,8 @@ def test_train_detector_eval_hook_and_best_checkpoint(tmp_path):
                                            checkpoint_path=path, eval_records=[rec])
     assert [it for it, _ in history["eval"]] == [3, 6]
     assert len(history["losses"]) == 6 and len(history["step_seconds"]) == 6
+    assert len(history["input_wait_s"]) == 6
+    assert all(0.0 <= w <= s for w, s in zip(history["input_wait_s"], history["step_seconds"]))
     assert all(np.isfinite(v) for step in history["losses"] for v in step.values())
     best_it, best_map = max(history["eval"], key=lambda e: (e[1], -e[0]))
     final = tckpt.load_checkpoint(path)

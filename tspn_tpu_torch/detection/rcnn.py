@@ -14,7 +14,9 @@ takes the batch natively, and RoIAlign pools all images' RoIs in one call
 compute type (float32 or bfloat16, flax's ``dtype=``): parameters stay
 float32 and every stage follows JAX's type promotion, so bf16 box deltas
 decoded against f32 anchors give f32 boxes, and bf16 scores are ranked by
-a stable sort.
+a stable sort. Under a profiler the stages are the spans ``tspn.backbone``,
+``tspn.rpn``, ``tspn.roi_head`` and ``tspn.postprocess``
+(``runtime/spans.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from tspn_tpu_torch.detection.rpn import (
 from tspn_tpu_torch.ops.boxes import clip_boxes, decode_boxes, encode_boxes, hflip_boxes
 from tspn_tpu_torch.ops.nms import box_iou, nms
 from tspn_tpu_torch.ops.roi_align import roi_align
+from tspn_tpu_torch.runtime.spans import span
 
 
 class DetectionConfig(NamedTuple):
@@ -125,8 +128,9 @@ class FasterRCNN(nn.Module):
     def features(self, images: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) images -> (N, H/16, W/16, 1024) contiguous, in the
         compute dtype (the stem casts the images, as flax's first conv)."""
-        x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        return self.backbone(x).permute(0, 2, 3, 1).contiguous()
+        with span("tspn.backbone"):
+            x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            return self.backbone(x).permute(0, 2, 3, 1).contiguous()
 
     def _rpn(self, feats: torch.Tensor):
         return self.rpn_head(feats.permute(0, 3, 1, 2))
@@ -136,14 +140,15 @@ class FasterRCNN(nn.Module):
         (N, P, C+1), deltas (N, P, C, 4))."""
         c = self.cfg
         n, p = boxes.shape[:2]
-        batch_idx = torch.arange(n, device=boxes.device, dtype=torch.int32
-                                 ).repeat_interleave(p)
-        pooled = self.roi_pool(feats, (boxes / c.stride).reshape(n * p, 4), batch_idx,
-                               c.roi_pool_size, 2)
-        embeddings = self.res5(pooled.permute(0, 3, 1, 2))  # (N*P, 2048)
-        cls_logits = self.cls_score(embeddings).reshape(n, p, -1)
-        deltas = self.bbox_pred(embeddings).reshape(n, p, c.num_classes, 4)
-        return cls_logits, deltas
+        with span("tspn.roi_head"):
+            batch_idx = torch.arange(n, device=boxes.device, dtype=torch.int32
+                                     ).repeat_interleave(p)
+            pooled = self.roi_pool(feats, (boxes / c.stride).reshape(n * p, 4), batch_idx,
+                                   c.roi_pool_size, 2)
+            embeddings = self.res5(pooled.permute(0, 3, 1, 2))  # (N*P, 2048)
+            cls_logits = self.cls_score(embeddings).reshape(n, p, -1)
+            deltas = self.bbox_pred(embeddings).reshape(n, p, c.num_classes, 4)
+            return cls_logits, deltas
 
     # ------------------------------------------------------------- training
     def forward(self, images: torch.Tensor, gt_boxes: torch.Tensor,
@@ -155,17 +160,19 @@ class FasterRCNN(nn.Module):
         c = self.cfg
         n, h, w = images.shape[:3]
         feats = self.features(images)
-        logits, deltas = self._rpn(feats)
-        anchors = make_anchors(feats.shape[1], feats.shape[2], c.stride, c.anchor_sizes,
-                               c.anchor_ratios, device=feats.device)
-        rpn_targets = match_anchors_to_gt(anchors, gt_boxes, gt_mask)
-        loss_obj, loss_box = rpn_loss(logits, deltas, anchors, rpn_targets,
-                                      c.rpn_batch_size, c.rpn_positive_fraction)
+        with span("tspn.rpn"):
+            logits, deltas = self._rpn(feats)
+            anchors = make_anchors(feats.shape[1], feats.shape[2], c.stride, c.anchor_sizes,
+                                   c.anchor_ratios, device=feats.device)
+            rpn_targets = match_anchors_to_gt(anchors, gt_boxes, gt_mask)
+            loss_obj, loss_box = rpn_loss(logits, deltas, anchors, rpn_targets,
+                                          c.rpn_batch_size, c.rpn_positive_fraction)
+            with torch.no_grad():
+                props = select_proposals(logits.detach(), deltas.detach(), anchors, (h, w),
+                                         c.pre_nms_topk_train, c.post_nms_topk_train,
+                                         c.rpn_nms_threshold)
 
         with torch.no_grad():
-            props = select_proposals(logits.detach(), deltas.detach(), anchors, (h, w),
-                                     c.pre_nms_topk_train, c.post_nms_topk_train,
-                                     c.rpn_nms_threshold)
             # the GT boxes join the proposals (detectron2's C4 practice)
             boxes = torch.cat([props.boxes, gt_boxes], dim=1)  # (N, P + G, 4)
             valid = torch.cat([props.mask, gt_mask > 0], dim=1)
@@ -216,35 +223,37 @@ class FasterRCNN(nn.Module):
         c = self.cfg
         h, w = image_hw
         n = feats.shape[0]
-        logits, deltas = self._rpn(feats)
-        anchors = make_anchors(feats.shape[1], feats.shape[2], c.stride,
-                               c.anchor_sizes, c.anchor_ratios, device=feats.device)
-        props = select_proposals(logits, deltas, anchors, (h, w), c.pre_nms_topk_test,
-                                 c.post_nms_topk_test, c.rpn_nms_threshold)
+        with span("tspn.rpn"):
+            logits, deltas = self._rpn(feats)
+            anchors = make_anchors(feats.shape[1], feats.shape[2], c.stride,
+                                   c.anchor_sizes, c.anchor_ratios, device=feats.device)
+            props = select_proposals(logits, deltas, anchors, (h, w), c.pre_nms_topk_test,
+                                     c.post_nms_topk_test, c.rpn_nms_threshold)
         cls_logits, box_deltas = self._roi_forward(feats, props.boxes)
-        probs = torch.softmax(cls_logits, dim=-1)[..., : c.num_classes]  # (N, P, C)
-        boxes_per_class = decode_boxes(
-            box_deltas, props.boxes[:, :, None, :].expand(box_deltas.shape)
-        )
-        boxes_per_class = clip_boxes(boxes_per_class, h, w)
+        with span("tspn.postprocess"):
+            probs = torch.softmax(cls_logits, dim=-1)[..., : c.num_classes]  # (N, P, C)
+            boxes_per_class = decode_boxes(
+                box_deltas, props.boxes[:, :, None, :].expand(box_deltas.shape)
+            )
+            boxes_per_class = clip_boxes(boxes_per_class, h, w)
 
-        p = probs.shape[1]
-        flat_scores = (probs * props.mask[..., None]).reshape(n, p * c.num_classes)
-        flat_boxes = boxes_per_class.reshape(n, p * c.num_classes, 4)
-        flat_classes = torch.arange(c.num_classes, device=feats.device).repeat(p)
+            p = probs.shape[1]
+            flat_scores = (probs * props.mask[..., None]).reshape(n, p * c.num_classes)
+            flat_boxes = boxes_per_class.reshape(n, p * c.num_classes, 4)
+            flat_classes = torch.arange(c.num_classes, device=feats.device).repeat(p)
 
-        keep_score = flat_scores > c.score_threshold
-        # class-aware NMS: offset boxes by class so classes never suppress
-        # each other
-        offset = flat_classes[:, None] * (max(h, w) + 2.0)
-        idx, keep = nms(flat_boxes + offset, flat_scores, c.test_nms_threshold,
-                        c.max_detections, valid=keep_score)
-        return {
-            "boxes": torch.gather(flat_boxes, 1, idx[..., None].expand(*idx.shape, 4)),
-            "scores": torch.gather(flat_scores, 1, idx) * keep,
-            "classes": flat_classes[idx],
-            "mask": keep,
-        }
+            keep_score = flat_scores > c.score_threshold
+            # class-aware NMS: offset boxes by class so classes never suppress
+            # each other
+            offset = flat_classes[:, None] * (max(h, w) + 2.0)
+            idx, keep = nms(flat_boxes + offset, flat_scores, c.test_nms_threshold,
+                            c.max_detections, valid=keep_score)
+            return {
+                "boxes": torch.gather(flat_boxes, 1, idx[..., None].expand(*idx.shape, 4)),
+                "scores": torch.gather(flat_scores, 1, idx) * keep,
+                "classes": flat_classes[idx],
+                "mask": keep,
+            }
 
     @torch.no_grad()
     def detect(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -15,7 +15,10 @@ The loop keeps the JAX trainer's shape: a producer thread assembles
 batches into a queue of depth 2, loss readbacks wait for log boundaries,
 an optional evaluation hook tracks the best held-out mAP, and the final
 checkpoint (parameters, SGD momentum, LR schedule, step) has a
-parameters-only ``_best`` sibling.
+parameters-only ``_best`` sibling. Under a profiler the batch's copy, the
+backward pass, the optimizer step and the loop's wait for a batch are the
+spans ``tspn.h2d``, ``tspn.backward``, ``tspn.optimizer`` and
+``tspn.input_wait`` (``runtime/spans.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from tspn_tpu_torch.detection.inputs import (
 )
 from tspn_tpu_torch.detection.rcnn import DetectionConfig, FasterRCNN
 from tspn_tpu_torch.runtime.logging_utils import MetricLogger, setup_logger
+from tspn_tpu_torch.runtime.spans import span
 
 LOSS_KEYS = ("loss_rpn_obj", "loss_rpn_box", "loss_cls", "loss_box")
 
@@ -64,12 +68,13 @@ def build_detector_optimizer(parameters, cfg: DetectorTrainConfig):
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {
-        "image": torch.as_tensor(batch["image"], dtype=torch.float32).to(device),
-        "gt_boxes": torch.as_tensor(batch["gt_boxes"], dtype=torch.float32).to(device),
-        "gt_classes": torch.as_tensor(batch["gt_classes"], dtype=torch.int64).to(device),
-        "gt_mask": torch.as_tensor(batch["gt_mask"], dtype=torch.float32).to(device),
-    }
+    with span("tspn.h2d"):
+        return {
+            "image": torch.as_tensor(batch["image"], dtype=torch.float32).to(device),
+            "gt_boxes": torch.as_tensor(batch["gt_boxes"], dtype=torch.float32).to(device),
+            "gt_classes": torch.as_tensor(batch["gt_classes"], dtype=torch.int64).to(device),
+            "gt_mask": torch.as_tensor(batch["gt_mask"], dtype=torch.float32).to(device),
+        }
 
 
 def detector_train_step(model: FasterRCNN, optimizer, scheduler,
@@ -80,9 +85,11 @@ def detector_train_step(model: FasterRCNN, optimizer, scheduler,
     losses = model(batch["image"], batch["gt_boxes"], batch["gt_classes"], batch["gt_mask"])
     total = sum(losses[k] for k in LOSS_KEYS)
     optimizer.zero_grad(set_to_none=True)
-    total.backward()
-    optimizer.step()
-    scheduler.step()
+    with span("tspn.backward"):
+        total.backward()
+    with span("tspn.optimizer"):
+        optimizer.step()
+        scheduler.step()
     out = {k: v.detach() for k, v in losses.items()}
     out["loss"] = total.detach()
     return out
@@ -107,8 +114,11 @@ def train_detector(
     """Train from a seeded init -> (model, history).
 
     ``history`` holds every step's losses (read back at log boundaries),
-    the host seconds between consecutive steps (``step_seconds``; a step's
-    readback ends in a sync only at a log boundary) and the evaluations.
+    the host seconds between consecutive steps (``step_seconds``: away from
+    a log boundary this times the step's enqueue, since only a boundary's
+    readback waits for the device), the host seconds each step waited for
+    its batch (``input_wait_s``, part of ``step_seconds``) and the
+    evaluations.
     With eval_records and ``train_cfg.eval_every > 0`` the evaluation hook
     logs held-out mAP and, with ``keep_best``, the model returned holds
     the best-mAP parameters. The batch order is the JAX trainer's for the
@@ -137,7 +147,7 @@ def train_detector(
 
     do_eval = bool(eval_records) and train_cfg.eval_every > 0
     best_map, best_iter, best_params = -1.0, 0, None
-    history = {"losses": [], "step_seconds": [], "eval": []}
+    history = {"losses": [], "step_seconds": [], "input_wait_s": [], "eval": []}
 
     # batch assembly (image decode, resize) on a producer thread, two
     # batches ahead; an error there is raised in the loop
@@ -159,7 +169,9 @@ def train_detector(
     pending: list = []
     end = time.time()
     for it in range(train_cfg.max_iter):
-        batch = batch_q.get()
+        with span("tspn.input_wait"):
+            batch = batch_q.get()
+        wait_s = time.time() - end
         if isinstance(batch, BaseException):
             raise RuntimeError("detector batch assembly failed") from batch
         losses = detector_train_step(model, optimizer, scheduler,
@@ -173,7 +185,8 @@ def train_detector(
             pending.clear()
         step_s = time.time() - end
         history["step_seconds"].append(step_s)
-        meters.update(time=step_s)
+        history["input_wait_s"].append(wait_s)
+        meters.update(time=step_s, wait=wait_s)
         if it % train_cfg.log_every == 0:
             logger.info(f"[{it + 1}/{train_cfg.max_iter}]  {meters}")
         if do_eval and (it + 1) % train_cfg.eval_every == 0:

@@ -11,7 +11,9 @@ tspn_tpu/ops/nms.py), batched over images.
   suppresses the field against them. The kept sequence equals the
   sequential one element for element. Over a batch (B, N) the loop runs
   until every image is done, with one host sync per step for all images
-  (an image that is done keeps its state, as under ``vmap``).
+  (an image that is done keeps its state, as under ``vmap``). Under a
+  profiler a call is one ``tspn.nms`` span and each sync a
+  ``tspn.nms.sync`` span (``runtime/spans.py``).
 
 Both return (indices, keep): padded slots index 0 with keep False.
 """
@@ -19,6 +21,8 @@ Both return (indices, keep): padded slots index 0 with keep False.
 from __future__ import annotations
 
 import torch
+
+from tspn_tpu_torch.runtime.spans import span
 
 
 def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -74,10 +78,16 @@ def nms(
     """Blocked exact greedy NMS (see the module docstring), one image or
     a batch of images -> (indices (..., top_k) int64, keep (..., top_k)
     bool)."""
-    if boxes.dim() == 2:
-        idx, keep = nms(boxes[None], scores[None], iou_threshold, top_k,
-                        None if valid is None else valid[None], block)
-        return idx[0], keep[0]
+    with span("tspn.nms"):
+        if boxes.dim() == 2:
+            idx, keep = _nms_blocked(boxes[None], scores[None], iou_threshold, top_k,
+                                     None if valid is None else valid[None], block)
+            return idx[0], keep[0]
+        return _nms_blocked(boxes, scores, iou_threshold, top_k, valid, block)
+
+
+def _nms_blocked(boxes, scores, iou_threshold, top_k, valid, block):
+    """``nms`` over a batch (B, N)."""
     bsz, n = scores.shape
     dev = boxes.device
     top_k = min(top_k, n)
@@ -93,7 +103,9 @@ def nms(
         return out_idx[:, :top_k], out_keep[:, :top_k]
     while True:
         running = (count < top_k) & active.any(dim=1)
-        if not bool(running.any()):
+        with span("tspn.nms.sync"):
+            go = bool(running.any())
+        if not go:
             break
         masked = torch.where(active, scores, ninf)
         top_s, top_i = torch.sort(masked, dim=1, descending=True, stable=True)
