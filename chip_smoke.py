@@ -5,7 +5,7 @@
 Phases, in order; any failure raises and the exit code is nonzero:
 
 1. report the card (nvidia-smi name and power limit) and versions;
-2. build the kernels from their ten sources with nvcc, one build per
+2. build the kernels from their eleven sources with nvcc, one build per
    source, all side by side (a fresh checkout always builds; a second run
    loads the builds), and report the builds of tspn_tpu_torch/csrc/
    q8s_sm90.cu (K1 and K6, wgmma) and q8s.cu (K4, dp4a);
@@ -188,13 +188,23 @@ Phases, in order; any failure raises and the exit code is nonzero:
     detector that detects;
 29. serve the bf16 detector: phase 15 with the model in bf16 (K7's bf16
     half against the plain bf16 RoIAlign in turns, frames/s, the same
-    detections apart from near-ties, TTA, classeme, a traced pass).
+    detections apart from near-ties, TTA, classeme, a traced pass);
+30. report the build of csrc/nms.cu and hold the NMS kernel against the
+    blocked loop it replaced, both on the card, bit for bit at the three
+    calls of the detector's cells (tspn_tpu_torch/tools/nms_cases.py: the
+    RPN at 4 x 12,000 -> 2,000 and 8 x 6,000 -> 1,000, the class-aware
+    field at 8 x 35,000 -> 100); time the whole call (sort and kernel),
+    the sort alone and the blocked loop with CUDA events. Its launches
+    are counted in the main-path groups of phases 15 and 28-29: two a
+    detect batch (RPN, class-aware), one a training step, one more a TTA
+    call.
 
 Convolutions and matrix products run in full f32 (TF32 off throughout).
 The kernel launches of the main path are counted from zero before each
 main-path phase group and read right after it: phases 5-6, 9-10, 11-12,
-15, 18, 21, 23, 25 and 28-29. K4 and K5 run on no main path (the JAX package has no caller
-for them either); their check launches stand in their entries. It prints the kernels' JSON line, then as its last line
+15, 18, 21, 23, 25 and 28-29. K4 and K5 run on no main path (the JAX
+package has no caller for them either); their check launches stand in
+their entries. It prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero
 before printing any result.
 """
@@ -264,6 +274,8 @@ K7_CASES = (("detect", 8, 40, 40, 1024, 2048, 14, 2, "random"),
 BORDER_BOXES = ((2.0, 3.0, 10.0, 12.0), (-3.0, -2.0, 5.0, 6.0), (18.0, 14.0, 30.0, 26.0),
                 (0.0, 0.0, 24.0, 20.0), (5.0, 5.0, 5.0, 5.0), (-4.0, -3.0, 5.0, 6.0),
                 (18.0, 14.0, 28.0, 24.0), (-1.5, -1.0, 0.5, 21.0))
+# NMS checks: the detector cells' three calls (tools/nms_cases.py)
+NMS_CASES = ("rpn_train", "rpn_detect", "class_aware")
 PLAIN_CHUNK = 256  # RoIs per roi_align_plain call: its (R, 28, W, C) gather
 # K7 backward checks: the training geometry (4 images, 128 RoIs each), a
 # ragged count and the borders; "train" boxes are half GT-like, half
@@ -1083,7 +1095,11 @@ def phase_detect(dev, dtype=torch.float32) -> dict:
               # warm-up, two timed kernel runs and the traced run: one
               # launch per batch each; the shared-features detect, TTA and
               # classeme once
-              "want_launches": 4 * n_batches + 3}
+              "want_launches": 4 * n_batches + 3,
+              # NMS, two calls a batch (RPN, class-aware) in every run,
+              # plain RoIAlign's too: six runs and the traced one; the two
+              # shared-features detects; TTA's detect and its merge
+              "want_nms_launches": 2 * 7 * n_batches + 2 * 2 + 3}
     log(f"{label}: {kept} detections kept over {DET_FRAMES} frames, every frame "
         f"keeps some; K7 and plain on shared features equal apart from {ties} "
         f"near-tie slots; TTA keeps {tta_kept}; frames/s kernel {runs['kernel']} "
@@ -1893,8 +1909,54 @@ def phase_detector_train(dev) -> dict:
     return result
 
 
+def nms_inputs(name: str, dev):
+    """One of the cells' NMS calls (tools/nms_cases.py) on the card ->
+    (boxes, scores, valid, top_k, threshold)."""
+    from tspn_tpu_torch.tools import nms_cases
+
+    b, n, top_k, thr = nms_cases.CELL_SHAPES[name]
+    made = (nms_cases.class_aware(SEED, b) if name == "class_aware"
+            else nms_cases.rpn_like(SEED, b, n))
+    return (*(t.to(dev) for t in made), top_k, thr)
+
+
+def phase_nms(dev) -> dict:
+    """csrc/nms.cu against the blocked loop on the card, bit for bit, at
+    the cells' three calls, timed."""
+    from tspn_tpu_torch.ops import nms as tnms
+
+    report = {}
+    for name in NMS_CASES:
+        boxes, scores, valid, top_k, thr = nms_inputs(name, dev)
+        before = tnms.LAUNCHES["nms"]
+        idx, keep = tnms.nms(boxes, scores, thr, top_k, valid=valid)
+        ref_idx, ref_keep = tnms._nms_blocked(boxes, scores, thr, top_k, valid, 16)
+        torch.cuda.synchronize()
+        if tnms.LAUNCHES["nms"] != before + 1:
+            raise AssertionError(f"nms {name}: {tnms.LAUNCHES['nms'] - before} launches")
+        if not (torch.equal(idx, ref_idx) and torch.equal(keep, ref_keep)):
+            raise AssertionError(f"nms {name}: the kernel differs from the blocked loop")
+        masked = torch.where(valid, scores, float("-inf"))
+        ms = cuda_median_ms(lambda: tnms.nms(boxes, scores, thr, top_k, valid=valid))
+        sort_ms = cuda_median_ms(
+            lambda: torch.sort(masked, dim=1, descending=True, stable=True))
+        plain_ms = cuda_median_ms(
+            lambda: tnms._nms_blocked(boxes, scores, thr, top_k, valid, 16),
+            warmup=1, iters=1, reps=3)
+        report[name] = {"images": scores.shape[0], "candidates": scores.shape[1],
+                        "top_k": top_k, "threshold": thr, "kept": keep.sum(1).tolist(),
+                        "max_abs_err": 0.0, "ms": ms, "sort_ms": sort_ms,
+                        "plain_ms": plain_ms, **bound((boxes, scores, valid), idx, 0, "f32")}
+        log(f"nms {name}: {scores.shape[0]} x {scores.shape[1]} -> {top_k} at {thr}, kept "
+            f"{report[name]['kept']}: equal to the blocked loop; call {ms:.4f} ms (sort "
+            f"{sort_ms:.4f} ms), blocked loop {plain_ms:.2f} ms")
+        del boxes, scores, valid, masked
+
+    return report
+
+
 def build_kernels() -> None:
-    """The ten sources' nvcc builds (K1 and K6 share q8s_sm90.cu, K4 is
+    """The eleven sources' nvcc builds (K1 and K6 share q8s_sm90.cu, K4 is
     q8s.cu; Kr, Kn and Ks4 rel.cu; T-roi 1-3 roi_probes.cu), one per source,
     started together."""
     from tspn_tpu_torch.ops import _cuda
@@ -1903,7 +1965,7 @@ def build_kernels() -> None:
                  _cuda.fused_classify_library, _cuda.roi_align_library,
                  _cuda.q8_bf16_library, _cuda.rel_library,
                  _cuda.fused_classify_bf16_library, _cuda.roi_sep_fused_library,
-                 _cuda.pair_probe_library)
+                 _cuda.pair_probe_library, _cuda.nms_library)
     with ThreadPoolExecutor(len(libraries)) as pool:
         for f in [pool.submit(lib) for lib in libraries]:
             f.result()
@@ -1922,15 +1984,16 @@ def report_build(name: str) -> None:
 def main_path(name: str, fn):
     """Drive one group of main-path phases with every launch count set to
     0 just before and read just after -> (fn's result, counts)."""
+    from tspn_tpu_torch.ops import nms as tnms
     from tspn_tpu_torch.ops import pairwise as pw
     from tspn_tpu_torch.ops import rel
     from tspn_tpu_torch.ops import roi_align as ra
     from tspn_tpu_torch.ops import roi_probes as rp
 
-    for module in (pw, ra, rel, rp):
+    for module in (pw, ra, rel, rp, tnms):
         module.reset_launches()
     result = fn()
-    counts = {**pw.LAUNCHES, **ra.LAUNCHES, **rel.LAUNCHES, **rp.LAUNCHES}
+    counts = {**pw.LAUNCHES, **ra.LAUNCHES, **rel.LAUNCHES, **rp.LAUNCHES, **tnms.LAUNCHES}
     log(f"main path {name}: launches {counts}")
     return result, counts
 
@@ -2042,6 +2105,9 @@ def main() -> int:
     if counts_det["roi_align"] != detect["want_launches"]:
         raise AssertionError(f"roi_align launches {counts_det['roi_align']}, want "
                              f"{detect['want_launches']}")
+    if counts_det["nms"] != detect["want_nms_launches"]:
+        raise AssertionError(f"nms launches {counts_det['nms']}, want "
+                             f"{detect['want_nms_launches']}")
 
     report_build("q8s_sm90")
     report_build("q8s")
@@ -2120,20 +2186,28 @@ def main() -> int:
                                                        detector_train_and_bf16_serve)
     # per kernel training run: one forward and one backward a step; the
     # traced step and its warm-up likewise; the traced f32 loop's steps
-    # likewise; the reloaded checkpoint's detect batch one f32 forward
+    # likewise; the reloaded checkpoint's detect batch one f32 forward. NMS:
+    # one RPN call a training step in every run, plain RoIAlign's too, in
+    # f32 and bf16; the reloaded checkpoint's detect batch two
     steps = 2 * DET_TRAIN_STEPS + 2
     want_train = {"roi_align": steps + DET_TRAIN_TRACED_STEPS + 1,
                   "roi_align_bf16": steps + detect_bf16["want_launches"],
-                  "roi_align_backward": 2 * steps + DET_TRAIN_TRACED_STEPS}
+                  "roi_align_backward": 2 * steps + DET_TRAIN_TRACED_STEPS,
+                  "nms": 2 * (4 * DET_TRAIN_STEPS + 2) + DET_TRAIN_TRACED_STEPS + 2
+                  + detect_bf16["want_nms_launches"]}
     if {k: v for k, v in counts_train.items() if v} != want_train:
         raise AssertionError(f"detector training + bf16 detect launches {counts_train}, "
                              f"want {want_train}")
+    log(f"nms launches on the main path: {counts_det['nms']} (phase 15) and "
+        f"{counts_train['nms']} (phases 28-29), as expected from two a detect batch, one a "
+        "training step and one more a TTA call")
     for kernel, counts in (("q8s", (counts_int8, counts_ppn, counts_tool, counts_rel)),
                            ("q8f_fused", (counts_int8, counts_ppn)),
                            ("fused_classify", (counts_fused, counts_ppn)),
                            ("roi_align", (counts_det, counts_train)),
                            ("roi_align_bf16", (counts_roi, counts_train)),
                            ("roi_align_backward", (counts_train,)),
+                           ("nms", (counts_det, counts_train)),
                            ("q8t", (counts_tool,)), ("q8_probe", (counts_tool,)),
                            ("rel_s8", (counts_rel,)), ("rel_s4x8", (counts_rel,)),
                            ("rel_s4x4", (counts_rel,)), ("fused_classify_bf16", (counts_bf16,)),
@@ -2141,6 +2215,8 @@ def main() -> int:
                            ("roi_constg", (counts_roi,))):
         if any(c[kernel] == 0 for c in counts):
             raise AssertionError(f"a main-path phase launched no {kernel} kernel")
+    report_build("nms")
+    nms_checks = phase_nms(dev)
     all_counts = (counts_int8, counts_fused, counts_ppn, counts_det, counts_tool, counts_rel,
                   counts_bf16, counts_roi, counts_train)
     launches = {k: sum(c[k] for c in all_counts) for k in counts_int8}
@@ -2161,6 +2237,7 @@ def main() -> int:
                     "roi_align_bf16_geometries": k7b_checks,
                     "roi_align_backward_geometries": k7g_checks,
                     "detector_train": det_train, "detector_bf16": detect_bf16,
+                    "nms_geometries": nms_checks,
                     "main_path_launches": {"int8_serve": counts_int8,
                                            "fused": counts_fused, "ppn": counts_ppn,
                                            "detector": counts_det,
@@ -2187,6 +2264,10 @@ def main() -> int:
         kernel_entry("roi_align_bf16", "tspn_tpu_torch/csrc/roi_align.cu",
                      "tspn_tpu/ops/roi_align.py:171", launches["roi_align_bf16"],
                      k7b_checks, "detect"),
+        kernel_entry("nms", "tspn_tpu_torch/csrc/nms.cu",
+                     "none (tspn_tpu/ops/nms.py::nms is a lax.while_loop)",
+                     launches["nms"], nms_checks, "rpn_train",
+                     sort_ms=nms_checks["rpn_train"]["sort_ms"]),
         kernel_entry("roi_align_backward", "tspn_tpu_torch/csrc/roi_align.cu",
                      "tspn_tpu/ops/roi_align.py:171", launches["roi_align_backward"],
                      k7g_checks["f32"], "train",

@@ -68,14 +68,15 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _bound(name: str, entry: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
+def _bound(name: str, entry: str, n_ptrs: int, n_ints: int, n_floats: int = 0) -> ctypes.CDLL:
     """``library(name)`` with ``entry(n_ptrs pointers, n_ints ints,
-    stream) -> cudaError_t`` typed for ctypes."""
+    n_floats floats, stream) -> cudaError_t`` typed for ctypes."""
     lib = library(name)
     fn = getattr(lib, entry)
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+            [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+            + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return lib
@@ -135,6 +136,10 @@ def roi_gemm_library() -> ctypes.CDLL:
 
 def rel_library() -> ctypes.CDLL:
     return _bound("rel", "tspn_rel_launch", 9, 9)
+
+
+def nms_library() -> ctypes.CDLL:
+    return _bound("nms", "tspn_nms_launch", 7, 3, n_floats=1)
 
 
 def check(err: int, what: str) -> None:

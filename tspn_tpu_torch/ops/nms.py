@@ -3,26 +3,47 @@ tspn_tpu/ops/nms.py), batched over images.
 
 - ``nms_sequential``: one output slot per step (argmax, then one
   suppression row); the oracle, one image at a time.
-- ``nms``: the JAX package's blocked greedy. Each step takes the top
-  ``block`` still-active candidates in score order (ties by index, as
-  ``lax.top_k``: a stable descending sort), resolves the chunk with a
-  triangular pass (a candidate is kept iff no higher-scoring KEPT chunk
-  member overlaps it), writes the kept ones into their output slots and
-  suppresses the field against them. The kept sequence equals the
-  sequential one element for element. Over a batch (B, N) the loop runs
-  until every image is done, with one host sync per step for all images
-  (an image that is done keeps its state, as under ``vmap``). Under a
-  profiler a call is one ``tspn.nms`` span and each sync a
-  ``tspn.nms.sync`` span (``runtime/spans.py``).
+- ``_nms_blocked``: the JAX package's blocked greedy, the CPU path. Each
+  step takes the top ``block`` still-active candidates in score order
+  (ties by index, as ``lax.top_k``: a stable descending sort), resolves
+  the chunk with a triangular pass (a candidate is kept iff no
+  higher-scoring KEPT chunk member overlaps it), writes the kept ones into
+  their output slots and suppresses the field against them. The kept
+  sequence equals the sequential one element for element. Over a batch
+  (B, N) the loop runs until every image is done, with one host sync per
+  step for all images (an image that is done keeps its state, as under
+  ``vmap``); under a profiler each sync is a ``tspn.nms.sync`` span
+  (``runtime/spans.py``).
+- ``_nms_cuda``: the same kept sequence on the card, with no host sync:
+  one stable descending sort of the masked scores for the whole call, then
+  one launch of ``csrc/nms.cu``, which walks each image's sorted
+  candidates and writes the output (its kept boxes in a buffer of
+  ``(B, top_k)`` boxes and areas).
+- ``nms``: the dispatch by the tensors' device, one ``tspn.nms`` span a
+  call under a profiler.
 
-Both return (indices, keep): padded slots index 0 with keep False.
+A candidate whose masked score is not finite (``valid`` False, -inf, +inf
+or NaN) is never kept and takes no slot; ``_nms_blocked`` and the kernel
+agree on that, while ``nms_sequential`` spends a slot (keep False) on a
++inf or NaN score. All return (indices, keep): padded slots index 0 with
+keep False.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from tspn_tpu_torch.runtime.spans import span
+
+# kernel launches made by the dispatch on CUDA tensors
+LAUNCHES = {"nms": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -73,20 +94,26 @@ def nms(
     iou_threshold: float,
     top_k: int,
     valid: torch.Tensor | None = None,
-    block: int = 16,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Blocked exact greedy NMS (see the module docstring), one image or
-    a batch of images -> (indices (..., top_k) int64, keep (..., top_k)
-    bool)."""
+    """Exact greedy NMS (see the module docstring), one image or a batch
+    of images -> (indices (..., top_k) int64, keep (..., top_k) bool): the
+    kernel on a CUDA tensor, the blocked loop (16 candidates a step) on a
+    CPU tensor."""
     with span("tspn.nms"):
+        if boxes.device.type == "cuda":
+            run = _nms_cuda
+        elif boxes.device.type == "cpu":
+            run = _nms_blocked
+        else:
+            raise ValueError(f"nms: no implementation for device {boxes.device}")
         if boxes.dim() == 2:
-            idx, keep = _nms_blocked(boxes[None], scores[None], iou_threshold, top_k,
-                                     None if valid is None else valid[None], block)
+            idx, keep = run(boxes[None], scores[None], iou_threshold, top_k,
+                            None if valid is None else valid[None])
             return idx[0], keep[0]
-        return _nms_blocked(boxes, scores, iou_threshold, top_k, valid, block)
+        return run(boxes, scores, iou_threshold, top_k, valid)
 
 
-def _nms_blocked(boxes, scores, iou_threshold, top_k, valid, block):
+def _nms_blocked(boxes, scores, iou_threshold, top_k, valid, block=16):
     """``nms`` over a batch (B, N)."""
     bsz, n = scores.shape
     dev = boxes.device
@@ -137,6 +164,46 @@ def _nms_blocked(boxes, scores, iou_threshold, top_k, valid, block):
         still = torch.gather(active, 1, top_i) & ~running[:, None]
         active.scatter_(1, top_i, still)
     return out_idx[:, :top_k], out_keep[:, :top_k]
+
+
+def _nms_cuda(boxes, scores, iou_threshold, top_k, valid):
+    """``nms`` over a batch (B, N) on the card: one sort, one kernel."""
+    from tspn_tpu_torch.ops import _cuda
+
+    bsz, n = scores.shape
+    if boxes.shape != (bsz, n, 4) or (valid is not None and valid.shape != (bsz, n)):
+        raise ValueError(f"nms: bad shapes boxes {tuple(boxes.shape)} scores "
+                         f"{tuple(scores.shape)}")
+    if any(t.device != boxes.device for t in (scores, valid) if t is not None):
+        raise ValueError("nms: all operands must be on one device")
+    if boxes.dtype != torch.float32:
+        raise TypeError(f"nms: boxes in {boxes.dtype}; the kernel takes float32")
+    top_k = min(top_k, n)
+    dev = boxes.device
+    out_idx = torch.empty((bsz, top_k), dtype=torch.int64, device=dev)
+    out_keep = torch.empty((bsz, top_k), dtype=torch.bool, device=dev)
+    if bsz == 0 or top_k == 0:
+        return out_idx, out_keep
+    masked = (scores if valid is None
+              else torch.where(valid.to(torch.bool), scores, float("-inf")))
+    top_s, order = torch.sort(masked, dim=1, descending=True, stable=True)
+    finite = torch.isfinite(top_s)
+    boxes = boxes.contiguous()
+    if boxes.data_ptr() % 16:  # the kernel reads a box as one float4
+        boxes = boxes.clone()
+    # the kernel's kept list: boxes and their areas
+    kept_box = torch.empty((bsz, top_k, 4), dtype=torch.float32, device=dev)
+    kept_area = torch.empty((bsz, top_k), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _cuda.nms_library().tspn_nms_launch(
+            boxes.data_ptr(), order.data_ptr(), finite.data_ptr(), out_idx.data_ptr(),
+            out_keep.data_ptr(), kept_box.data_ptr(), kept_area.data_ptr(), bsz, n, top_k,
+            iou_threshold, ctypes.c_void_p(stream),
+        )
+    _cuda.check(err, "tspn_nms_launch")
+    LAUNCHES["nms"] += 1
+    return out_idx, out_keep
 
 
 def nms_tlwh(boxes_tlwh, scores, iou_threshold, top_k, valid=None):

@@ -8,9 +8,11 @@ context: tracing is on exactly while a profiler is active.
 
 The spans, and what reads them (PERF.md, section 3):
 
-- ``tspn.nms``: one call of ``ops.nms.nms``, the whole blocked loop;
-- ``tspn.nms.sync``: the loop's host wait for ``running.any()``, once a
-  block and once more to end a call;
+- ``tspn.nms``: one call of ``ops.nms.nms`` (on the card one sort and one
+  kernel launch, on the CPU the whole blocked loop);
+- ``tspn.nms.sync``: the blocked loop's host wait for ``running.any()``,
+  once a block and once more to end a call (the CPU path only: the card's
+  kernel makes no host sync);
 - ``tspn.backbone``, ``tspn.rpn``, ``tspn.roi_head``, ``tspn.postprocess``:
   the detector's stages (``detection/rcnn.py``);
 - ``tspn.h2d``, ``tspn.d2h``: the batch's copy to the card and the
