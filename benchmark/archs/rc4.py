@@ -1,16 +1,37 @@
-"""The R-C4 detector's architecture as the benchmark reads it from a
-configuration file: its parameters (names, shapes, initializers) and its
-convolutions and dense layers (shapes for the FLOP counts).
+"""The Faster R-CNN R-C4 detector as the benchmark reads it from a
+configuration file (``"arch": "rc4"``): its parameters (names, shapes,
+initializers), its convolutions and dense layers (shapes for the counts),
+the operations and bytes its work needs, the port's configuration, the
+program that runs it and its plain reference.
+
+What the harness takes from an architecture module:
+  PROGRAM        (module, model class, config class) of the port's model,
+                 built by ``sut.py``
+  port_configs   the configuration as the port's config fields
+  param_specs    every parameter, in the order the weights are drawn
+  work           the work of one image or frame and of one step
+  reference      the plain reference detector; ``train_batch`` its input
 
 Parameter names are the port's ``state_dict`` keys, so the benchmark's
 seeded weights load into the program by name; the plain reference reads
 the same dict. Nothing here imports the program.
+
+Operations and bytes are counted from the published architecture and a
+cell's shapes, never from what the program launched. A multiply-add is two
+operations. Training counts three times the forward of every layer whose
+weights get a gradient (forward, input gradient, weight gradient), and
+twice for the stem, whose input (the images) takes no gradient.
+Elementwise work (the frozen affines, ReLUs, pooling) is not counted.
 """
 
 from __future__ import annotations
 
 import math
 from typing import Dict, Iterator, List, NamedTuple, Tuple
+
+from benchmark.reference.rcnn import train_batch  # noqa: F401  (the interface's input)
+
+PROGRAM = ("tspn_tpu_torch.detection.rcnn", "FasterRCNN", "DetectionConfig")
 
 # bottleneck blocks per stage (res2, res3, res4, res5); 26 is a one-block
 # network for the CPU tests
@@ -214,3 +235,73 @@ def port_configs(config: dict) -> Dict[str, dict]:
         max_size=config["INPUT.MAX_SIZE_TRAIN"], pad_multiple=32, max_gt_boxes=32,
         mixed_precision=config["compute_dtype"] == "bfloat16")
     return {"detection": detection, "train": train}
+
+
+def param_specs(config: dict) -> List[Param]:
+    return params(arch_of(config))
+
+
+# ------------------------------------------------------------------ work
+def layer_flops(layer) -> int:
+    h, w = layer.out_hw
+    return 2 * h * w * layer.cout * layer.cin * layer.k * layer.k
+
+
+def forward_flops(a: Arch, canvas_hw: Tuple[int, int], rois: int, pool: int) -> Dict[str, int]:
+    """Forward operations of one image at ``canvas_hw`` with ``rois`` RoIs
+    through the box head, by part: "stem", "backbone" (res2-res4), "rpn",
+    "res5" and "predictor"."""
+    parts: Dict[str, int] = {}
+    for layer in layers(a, canvas_hw, pool):
+        per = rois if layer.part in ("res5", "predictor") else 1
+        parts[layer.part] = parts.get(layer.part, 0) + per * layer_flops(layer)
+    return parts
+
+
+def image_flops(a: Arch, canvas_hw, rois: int, pool: int, train: bool) -> Dict[str, int]:
+    """{"conv": ..., "model": ...}: an image's convolution operations and
+    all its model operations (convolutions and the dense predictor), in
+    training (forward and backward) or detection (forward)."""
+    parts = forward_flops(a, canvas_hw, rois, pool)
+    if train:
+        parts = {k: v * (2 if k == "stem" else 3) for k, v in parts.items()}
+    conv = sum(v for k, v in parts.items() if k != "predictor")
+    return {"conv": conv, "model": conv + parts.get("predictor", 0)}
+
+
+def roi_align_bytes(a: Arch, canvas_hw, images: int, rois: int, pool: int,
+                    elem: int, backward: bool) -> int:
+    """Least bytes of one RoIAlign over ``images`` maps and ``rois`` RoIs
+    in all: the map read once and the output written once; with the
+    backward, the output's gradient read once and the map's written once
+    besides."""
+    fh, fw = feature_hw(canvas_hw)
+    c4 = a.res2_out << 2
+    map_bytes = images * fh * fw * c4 * elem
+    out_bytes = rois * pool * pool * c4 * elem
+    once = map_bytes + out_bytes
+    return 2 * once if backward else once
+
+
+def work(config: dict, shapes: dict, train: bool) -> Dict[str, Dict[str, int]]:
+    """The work at a cell's ``shapes`` (``canvas_hw``, ``images_per_step``,
+    ``rois_per_image``): {"unit": of one image or frame, "step": of one
+    step or batch}. ``conv_flops``: the convolutions; ``model_flops``: they
+    and the dense predictor; ``k7_bytes``: RoIAlign's least bytes."""
+    a = arch_of(config)
+    pool = port_configs(config)["detection"]["roi_pool_size"]
+    canvas, per, rois = shapes["canvas_hw"], shapes["images_per_step"], shapes["rois_per_image"]
+    flops = image_flops(a, canvas, rois, pool, train)
+    elem = 2 if config["compute_dtype"] == "bfloat16" else 4
+    return {"unit": {"conv_flops": flops["conv"], "model_flops": flops["model"]},
+            "step": {"k7_bytes": roi_align_bytes(a, canvas, per, per * rois, pool, elem,
+                                                 backward=train)}}
+
+
+def reference(config: dict, weights, precision: str, train: bool = False,
+              channels_last: bool = True):
+    """The plain reference detector over ``weights`` at ``precision``."""
+    from benchmark.reference.rc4 import Detector
+
+    return Detector(arch_of(config), port_configs(config)["detection"], weights, precision,
+                    train=train, channels_last=channels_last)

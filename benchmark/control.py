@@ -34,8 +34,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from benchmark.arch import arch_of, port_configs
-from benchmark.reference.detector import Detector, train_batch
+from benchmark import archs
 from benchmark.reference.trainer import Trainer
 
 LOWER = {"float32": "tf32", "bfloat16": "fp8"}
@@ -45,14 +44,14 @@ class ControlTrainer:
     """The reference trainer at ``precision`` with the program's face."""
 
     def __init__(self, config, weights, device, traffic, precision: str, channels_last: bool):
-        pc = port_configs(config)
-        self.device, self.train = device, pc["train"]
-        self.ref = Trainer(arch_of(config), pc["detection"], pc["train"], weights, precision,
-                           channels_last)
+        self.arch = archs.of(config)
+        self.device, self.train = device, self.arch.port_configs(config)["train"]
+        self.ref = Trainer(self.arch.reference(config, weights, precision, train=True,
+                                               channels_last=channels_last), self.train)
         self.names = list(weights)
 
     def assembler(self):
-        return train_batch, self.train
+        return self.arch.train_batch, self.train
 
     def step(self, batch) -> Dict[str, torch.Tensor]:
         from benchmark.drivers.train import to_device
@@ -73,8 +72,8 @@ class ControlDetector:
 
     def __init__(self, config, weights, device, traffic, precision: str, channels_last: bool):
         self.device, self.bs = device, traffic["batch_size"]
-        self.ref = Detector(arch_of(config), port_configs(config)["detection"], weights,
-                            precision, channels_last=channels_last)
+        self.ref = archs.of(config).reference(config, weights, precision,
+                                              channels_last=channels_last)
 
     def detect(self, frames: np.ndarray) -> Dict[str, np.ndarray]:
         outs = []
@@ -97,27 +96,19 @@ def _trainer_fault(fault: str):
 
     class Faulty(ProgramTrainer):
         def step(self, batch):
-            from tspn_tpu_torch.detection import train as dt
-
             if fault == "half_batch":
                 half = batch["image"].shape[0] // 2
                 batch = {k: v[:half] for k, v in batch.items()}
-            dev = dt.batch_to_device(batch, self.device)
             if fault == "unchanged":
-                with torch.no_grad():
-                    losses = self.model(dev["image"], dev["gt_boxes"], dev["gt_classes"],
-                                        dev["gt_mask"])
-                out = dict(losses)
-                out["loss"] = sum(losses[k] for k in dt.LOSS_KEYS)
-                return out
+                return self.losses(batch)
             if fault == "altered":
                 leaf = self.params()["cls_score.weight"]
                 before = leaf.detach().clone()
-                out = dt.detector_train_step(self.model, self.optimizer, self.scheduler, dev)
+                out = super().step(batch)
                 with torch.no_grad():
                     leaf.copy_(before)
                 return out
-            return dt.detector_train_step(self.model, self.optimizer, self.scheduler, dev)
+            return super().step(batch)
 
     return lambda config, weights, device, traffic: Faulty(config, weights, device)
 

@@ -13,10 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from benchmark import compare
-from benchmark.arch import arch_of, port_configs
+from benchmark import archs, compare
 from benchmark.inputs import make_frames, seed_rng
-from benchmark.reference.detector import Detector
 from benchmark.weights import make_weights
 
 
@@ -26,9 +24,17 @@ def make_program(config, weights, device, traffic):
     return ProgramDetector(config, weights, device, traffic["batch_size"])
 
 
+def shapes(config, traffic) -> dict:
+    """The shapes the window runs, which the work is counted at."""
+    det = archs.of(config).port_configs(config)["detection"]
+    return {"canvas_hw": tuple(traffic["canvas_hw"]), "images_per_step": traffic["batch_size"],
+            "rois_per_image": det["post_nms_topk_test"]}
+
+
 def run(ctx) -> dict:
     config, traffic, device = ctx.config, ctx.traffic, ctx.device
-    det = port_configs(config)["detection"]
+    arch = archs.of(config)
+    det = arch.port_configs(config)["detection"]
     bs = traffic["batch_size"]
     phases = {"start": ctx.clock() - ctx.t_start}
     # the weights and frames are the same in every run; the run's seed
@@ -66,7 +72,7 @@ def run(ctx) -> dict:
     t_check = ctx.clock()
     failed = sum(_bad(call, t) for call in calls)
     sample = seed_rng(ctx.seed, 4).choice(t // bs, size=traffic["sample_batches"], replace=False)
-    ref = Detector(arch_of(config), det, make_weights(config, content, device), ctx.precision)
+    ref = arch.reference(config, make_weights(config, content, device), ctx.precision)
     refs = {}
     for b in sorted(int(v) for v in sample):
         out = ref.detect(torch.as_tensor(frames[b * bs: (b + 1) * bs], device=device))
@@ -79,8 +85,7 @@ def run(ctx) -> dict:
             "setup_s": setup_s, "phases": phases, "check_s": ctx.clock() - t_check,
             "attempted": len(calls) * t, "failed": failed,
             "numbers": numbers, "where": where, "memory_peak_bytes": peak, **windows,
-            "shapes": {"canvas_hw": tuple(traffic["canvas_hw"]), "images_per_step": bs,
-                       "rois_per_image": det["post_nms_topk_test"]}}
+            "shapes": shapes(config, traffic)}
 
 
 def _bad(call, t: int) -> int:

@@ -20,10 +20,8 @@ from typing import Dict, List
 
 import torch
 
-from benchmark import compare
-from benchmark.arch import arch_of, port_configs
+from benchmark import archs, compare
 from benchmark.inputs import epoch_batches, make_records
-from benchmark.reference.detector import train_batch
 from benchmark.reference.trainer import Trainer
 from benchmark.weights import make_weights
 
@@ -50,9 +48,21 @@ def make_program(config, weights, device, traffic):
     return ProgramTrainer(config, weights, device)
 
 
+def shapes(config, traffic) -> dict:
+    """The shapes the window runs, which the work is counted at: a batch's
+    canvas, padded from the largest train size."""
+    pc = archs.of(config).port_configs(config)
+    t = pc["train"]
+    pad = t["pad_multiple"]
+    return {"canvas_hw": (-(-t["min_size"] // pad) * pad, -(-t["max_size"] // pad) * pad),
+            "images_per_step": t["ims_per_batch"],
+            "rois_per_image": pc["detection"]["roi_batch_size"]}
+
+
 def run(ctx) -> dict:
     config, traffic, device = ctx.config, ctx.traffic, ctx.device
-    pc = port_configs(config)
+    arch = archs.of(config)
+    pc = arch.port_configs(config)
     per = pc["train"]["ims_per_batch"]
     phases = {"start": ctx.clock() - ctx.t_start}
     # the weights and images are the same in every run; the run's seed
@@ -113,10 +123,9 @@ def run(ctx) -> dict:
     ctx.free()
 
     t_check = ctx.clock()
-    arch = arch_of(config)
-    ref = Trainer(arch, pc["detection"], pc["train"], make_weights(config, content, device),
-                  ctx.precision)
-    ref_losses = [ref.step(to_device(train_batch([records[i] for i in idx], pc["train"]),
+    ref = Trainer(arch.reference(config, make_weights(config, content, device), ctx.precision,
+                                 train=True), pc["train"])
+    ref_losses = [ref.step(to_device(arch.train_batch([records[i] for i in idx], pc["train"]),
                                      device)) for idx in order[:traffic["check_steps"]]]
     numbers, where = compare.train_numbers(
         prog_losses, ref_losses, prog_first, compare.leaf_norms(ref.first_update),
@@ -125,16 +134,8 @@ def run(ctx) -> dict:
     return {"end_to_end": {"train_images_per_s": counts["images"] / counts["window_s"]},
             "setup_s": setup_s, "phases": phases, "check_s": ctx.clock() - t_check,
             "attempted": done, "failed": failed, "numbers": numbers, "where": where,
-            "memory_peak_bytes": peak, **windows,
-            "shapes": {"canvas_hw": _canvas(pc), "images_per_step": per,
-                       "rois_per_image": pc["detection"]["roi_batch_size"]}}
+            "memory_peak_bytes": peak, **windows, "shapes": shapes(config, traffic)}
 
 
 def _bad(losses: List[Dict[str, float]]) -> int:
     return sum(not all(math.isfinite(v) for v in step.values()) for step in losses)
-
-
-def _canvas(pc: dict):
-    t = pc["train"]
-    pad = t["pad_multiple"]
-    return (-(-t["min_size"] // pad) * pad, -(-t["max_size"] // pad) * pad)

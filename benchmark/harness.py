@@ -5,9 +5,10 @@ metrics read, its result line built.
 ``benchmark/configs/<config>.json``, its traffic
 ``benchmark/traffic/<traffic>.json`` (whose ``kind`` names the driver,
 ``benchmark/drivers/<kind>.py``), its limits
-``benchmark/limits/<workload>.json``, and each per-layer metric's reader
+``benchmark/limits/<workload>.json``, each per-layer metric's reader
 ``benchmark/metrics/<name>.py``, or ``<name up to its first dot>.py``
-shared by the metric's forms.
+shared by the metric's forms, and the configuration's architecture
+``benchmark/archs/<arch>.py`` (its ``"arch"`` key).
 """
 
 from __future__ import annotations
@@ -23,9 +24,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from benchmark import compare
-from benchmark.arch import arch_of, port_configs
-from benchmark.flops import image_flops, roi_align_bytes
+from benchmark import archs, compare
 from benchmark.peaks import PEAK, PEAK_OF_DTYPE
 from benchmark.trace import DeviceTrace, Tracer
 
@@ -159,31 +158,27 @@ def metric_reader(name: str):
 
 
 def metric_context(c, out: dict, dt: Optional[DeviceTrace]) -> SimpleNamespace:
-    """What a metric reader gets: the trace and the traced window's counts
-    with the work they stand for (convolution operations, RoIAlign bytes);
-    the untraced window's counts, seconds and model operations, which the
-    rates are measured on (the profiler slows the host); and the peaks of
-    the configuration's compute type."""
+    """What a metric reader gets: the configuration; the trace and the
+    traced window's counts with the work they stand for (``work``: the
+    architecture module's counts of one image or frame and of one step,
+    times the window's; ``conv_flops`` and ``k7_bytes`` among them); the
+    untraced window's counts, seconds and model operations, which the rates
+    are measured on (the profiler slows the host); and the peaks of the
+    configuration's compute type."""
     kind = c.traffic["kind"]
-    arch = arch_of(c.config)
-    det = port_configs(c.config)["detection"]
-    shapes = out["shapes"]
     train = kind == "train"
-    per_unit = image_flops(arch, shapes["canvas_hw"], shapes["rois_per_image"],
-                           det["roi_pool_size"], train)
+    per = archs.of(c.config).work(c.config, out["shapes"], train)
     unit_key, step_key = ("images", "steps") if train else ("frames", "batches")
     plain = out["counts"]
     counts = out.get("traced_counts") or plain
     units, steps = counts[unit_key], counts[step_key]
-    per = shapes["images_per_step"]
-    elem = 2 if c.config["compute_dtype"] == "bfloat16" else 4
-    k7 = roi_align_bytes(arch, shapes["canvas_hw"], per, per * shapes["rois_per_image"],
-                         det["roi_pool_size"], elem, backward=train)
+    work = {**{k: v * units for k, v in per["unit"].items()},
+            **{k: v * steps for k, v in per["step"].items()}}
     return SimpleNamespace(
-        kind=kind, trace=dt, counts=counts, units=units, steps=steps,
-        conv_flops=per_unit["conv"] * units, k7_bytes=k7 * steps,
+        kind=kind, config=c.config, trace=dt, counts=counts, units=units, steps=steps,
+        work=work, conv_flops=work.get("conv_flops"), k7_bytes=work.get("k7_bytes"),
         rate_units=plain[unit_key], rate_window_s=plain["window_s"],
-        model_flops=per_unit["model"] * plain[unit_key],
+        model_flops=per["unit"]["model_flops"] * plain[unit_key],
         peak_flops=PEAK_OF_DTYPE[c.config["compute_dtype"]], peak_bytes=PEAK["bytes"])
 
 

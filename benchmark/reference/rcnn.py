@@ -1,15 +1,16 @@
-"""The plain reference of the benchmark's detector: Faster R-CNN R-C4 over a
-dict of weights, in plain PyTorch (channels-last convolutions, the plain
-RoIAlign and greedy NMS of ``reference/ops.py``), at a stated precision.
+"""What the plain references of the benchmark's two-stage detectors share:
+layers over a dict of weights at a stated precision (channels-last
+convolutions, frozen affines, dense layers), the RPN's losses and
+proposals (top-k, decode, clip and NMS), RoI sampling with the ground truth
+appended in training, the box losses, class-aware NMS at test, anchor
+matching, balanced sampling and the input batch; in plain PyTorch, with the
+plain RoIAlign and greedy NMS of ``reference/ops.py``. An architecture's
+reference (``reference/<arch>.py``) subclasses ``TwoStageDetector`` with
+its features, RPN head, anchors and box head.
 
-It follows the published model and the configuration's numbers: ResNet
-bottlenecks with frozen affines (the 3x3 conv strided), a 3x3 RPN conv
-with 1x1 objectness and delta heads over stride-16 anchors, proposals by
-top-k, decode, clip and NMS, the ground truth appended in training, res5
-on 14 x 14 RoIAlign crops, a softmax classifier and class-wise deltas,
-class-aware NMS at test. The sampling rules are the program's
-deterministic ones: the RPN takes the hardest anchors first, the RoI head
-the highest-IoU proposals first, each balanced to its positive fraction.
+The sampling rules are the program's deterministic ones: the RPN takes the
+hardest anchors first, the RoI head the highest-IoU proposals first, each
+balanced to its positive fraction.
 
 A precision of "float32" or "bfloat16" is the configuration's; "tf32" and
 "fp8" round every conv and dense operand one step lower (the control).
@@ -32,19 +33,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from benchmark.arch import Arch, STRIDE, block_convs, stages
 from benchmark.reference import ops
 
 LOSS_KEYS = ("loss_rpn_obj", "loss_rpn_box", "loss_cls", "loss_box")
 
 
-class Detector:
+class TwoStageDetector:
     """Weights: name -> float32 tensor (the benchmark's). ``train=True``
-    makes them leaves that take gradients."""
+    makes them leaves that take gradients. ``det``: the port's detection
+    config fields. A subclass gives ``features``, ``rpn``, ``anchors`` and
+    ``box_head``."""
 
-    def __init__(self, arch: Arch, det: dict, weights: Dict[str, torch.Tensor],
-                 precision: str, train: bool = False, channels_last: bool = True):
-        self.arch, self.det, self.precision = arch, det, precision
+    def __init__(self, det: dict, weights: Dict[str, torch.Tensor], precision: str,
+                 train: bool = False, channels_last: bool = True):
+        self.det, self.precision = det, precision
         self.dtype = ops.COMPUTE_DTYPE[precision]
         self.layout = torch.channels_last if channels_last else torch.contiguous_format
         self.w = {}
@@ -69,47 +71,25 @@ class Detector:
                          ops.operand(self.w[f"{name}.weight"], self.precision))
                 + self.w[f"{name}.bias"].to(self.dtype))
 
-    def stage(self, x, prefix, blocks, cin, cout, width, stride):
-        convs: Dict[str, dict] = {}
-        for name, _ci, _co, k, s in block_convs(prefix, blocks, cin, cout, width, stride):
-            block, part = name.rsplit(".", 1)
-            convs.setdefault(block, {})[part] = (name, k, s)
-        for block in convs.values():
-            y = x
-            for part in ("conv1", "conv2", "conv3"):
-                name, k, s = block[part]
-                y = self.affine(self.conv(y, name, s, k // 2), name[:-5] + "norm" + part[-1])
-                if part != "conv3":
-                    y = torch.relu(y)
-            shortcut = x
-            if "shortcut" in block:
-                name, _k, s = block["shortcut"]
-                shortcut = self.affine(self.conv(x, name, s), name + "_norm")
-            x = torch.relu(shortcut + y)
-        return x
-
-    def features(self, images: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) -> (N, H/16, W/16, C4) contiguous."""
-        x = images.permute(0, 3, 1, 2).contiguous(memory_format=self.layout)
-        x = torch.relu(self.affine(self.conv(x, "backbone.stem_conv", 2, 3), "backbone.stem_norm"))
-        x = F.max_pool2d(x, 3, 2, 1)
-        for st in stages(self.arch)[:3]:
-            x = self.stage(x, *st)
-        return x.permute(0, 2, 3, 1).contiguous()
+    # ------------------------------------------------ the architecture's
+    def features(self, images: torch.Tensor):
+        """(N, H, W, 3) images -> what ``rpn``, ``anchors`` and ``box_head``
+        read."""
+        raise NotImplementedError
 
     def rpn(self, feats):
-        n = feats.shape[0]
-        x = feats.permute(0, 3, 1, 2).contiguous(memory_format=self.layout)
-        t = torch.relu(self.conv(x, "rpn_head.conv", 1, 1, bias=True))
-        logits = self.conv(t, "rpn_head.objectness", bias=True).permute(0, 2, 3, 1).reshape(n, -1)
-        deltas = self.conv(t, "rpn_head.deltas", bias=True).permute(0, 2, 3, 1).reshape(n, -1, 4)
-        return logits, deltas
+        """-> objectness logits (N, K), deltas (N, K, 4) over all anchors."""
+        raise NotImplementedError
 
     def anchors(self, feats):
-        d = self.det
-        return ops.anchors(feats.shape[1:3], STRIDE, d["anchor_sizes"], d["anchor_ratios"],
-                           feats.device)
+        """-> (K, 4) xyxy anchors in ``rpn``'s order."""
+        raise NotImplementedError
 
+    def box_head(self, feats, boxes):
+        """feats, boxes (N, P, 4) -> (logits (N, P, C+1), deltas (N, P, C, 4))."""
+        raise NotImplementedError
+
+    # ------------------------------------------------------------ shared
     def proposals(self, logits, deltas, anchors, image_hw, pre: int, post: int):
         """-> boxes (N, post, 4), mask (N, post)."""
         n, k_all = logits.shape
@@ -121,20 +101,6 @@ class Detector:
         ok = ((boxes[..., 2] - boxes[..., 0]) > 0.0) & ((boxes[..., 3] - boxes[..., 1]) > 0.0)
         keep_idx, keep = ops.nms(boxes, scores, self.det["rpn_nms_threshold"], post, ok)
         return torch.gather(boxes, 1, keep_idx[..., None].expand(*keep_idx.shape, 4)), keep
-
-    def box_head(self, feats, boxes):
-        """feats (N, h, w, C), boxes (N, P, 4) -> (logits (N, P, C+1),
-        deltas (N, P, C, 4))."""
-        d = self.det
-        n, p = boxes.shape[:2]
-        img = torch.arange(n, device=boxes.device, dtype=torch.int32).repeat_interleave(p)
-        pooled = ops.roi_align(feats, (boxes / STRIDE).reshape(n * p, 4), img,
-                               d["roi_pool_size"], 2)
-        x = pooled.permute(0, 3, 1, 2).contiguous(memory_format=self.layout)
-        x = self.stage(x, *stages(self.arch)[3]).mean(dim=(2, 3))
-        logits = self.dense(x, "cls_score").reshape(n, p, -1)
-        deltas = self.dense(x, "bbox_pred").reshape(n, p, d["num_classes"], 4)
-        return logits, deltas
 
     # ---------------------------------------------------------- training
     def losses(self, images, gt_boxes, gt_classes, gt_mask) -> Dict[str, torch.Tensor]:

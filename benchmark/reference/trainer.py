@@ -1,7 +1,8 @@
-"""The reference's training steps: the reference detector's four losses,
-their sum's gradient by autograd, and SGD with momentum and weight decay
-written out (d = g + wd * p; m = d on the first step, else momentum * m + d;
-p -= lr * m), at the configuration's warm-up rate (linear from base / 3).
+"""The reference's training steps: a reference detector's four losses
+(``reference/rcnn.py``), their sum's gradient by autograd, and SGD with
+momentum and weight decay written out (d = g + wd * p; m = d on the first
+step, else momentum * m + d; p -= lr * m), at the configuration's warm-up
+rate (linear from base / 3).
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from typing import Dict, List
 
 import torch
 
-from benchmark.reference.detector import LOSS_KEYS, Detector
+from benchmark.reference.rcnn import LOSS_KEYS, TwoStageDetector
 
 
 def learning_rate(step: int, train: dict) -> float:
@@ -22,12 +23,12 @@ def learning_rate(step: int, train: dict) -> float:
 
 
 class Trainer:
-    def __init__(self, arch, det: dict, train: dict, weights: Dict[str, torch.Tensor],
-                 precision: str, channels_last: bool = True):
+    """Trains ``model``, a reference detector built with ``train=True``."""
+
+    def __init__(self, model: TwoStageDetector, train: dict):
         self.train = train
-        self.model = Detector(arch, det, weights, precision, train=True,
-                              channels_last=channels_last)
-        self.names: List[str] = list(weights)
+        self.model = model
+        self.names: List[str] = list(model.w)
         self.start = {k: v.detach().clone() for k, v in self.model.w.items()}
         self.momentum: Dict[str, torch.Tensor] = {}
         self.steps = 0

@@ -1,5 +1,7 @@
 """The system under test: the port's detector, built from the benchmark's
-weights and driven through the port's own entry points.
+weights and driven through the port's own entry points. The model's class
+and config class are the ones the configuration's architecture module
+names (its ``PROGRAM``).
 
 Training goes through ``detection.inputs.make_batch`` (the batches'
 assembly, in set-up), ``detection.train.batch_to_device`` and
@@ -11,21 +13,23 @@ time. The port is imported here and nowhere else in the benchmark.
 
 from __future__ import annotations
 
+import importlib
 from typing import Dict, List
 
 import numpy as np
 import torch
 
-from benchmark.arch import port_configs
+from benchmark import archs
 
 
 def _model(config: dict, weights: Dict[str, torch.Tensor], device):
-    from tspn_tpu_torch.detection.rcnn import DetectionConfig, FasterRCNN
-
+    arch = archs.of(config)
+    module, model_class, config_class = arch.PROGRAM
+    program = importlib.import_module(module)
     dtype = torch.bfloat16 if config["compute_dtype"] == "bfloat16" else torch.float32
-    det_cfg = DetectionConfig(**port_configs(config)["detection"])
+    det_cfg = getattr(program, config_class)(**arch.port_configs(config)["detection"])
     with torch.device("meta"):
-        model = FasterRCNN(det_cfg, dtype=dtype)
+        model = getattr(program, model_class)(det_cfg, dtype=dtype)
     model = model.to_empty(device=device)
     model.load_state_dict(weights)
     if device.type == "cuda":
@@ -41,7 +45,7 @@ class ProgramTrainer:
         from tspn_tpu_torch.detection.inputs import DetectorTrainConfig
 
         self.device = device
-        self.train_cfg = DetectorTrainConfig(**port_configs(config)["train"])
+        self.train_cfg = DetectorTrainConfig(**archs.of(config).port_configs(config)["train"])
         self.model = _model(config, weights, device).train()
         self.optimizer, self.scheduler = dt.build_detector_optimizer(
             self.model.parameters(), self.train_cfg)
@@ -59,6 +63,18 @@ class ProgramTrainer:
 
         return dt.detector_train_step(self.model, self.optimizer, self.scheduler,
                                       dt.batch_to_device(batch, self.device))
+
+    def losses(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """A batch's losses with no update (control's fault of a step that
+        leaves the state unchanged)."""
+        from tspn_tpu_torch.detection import train as dt
+
+        dev = dt.batch_to_device(batch, self.device)
+        with torch.no_grad():
+            losses = self.model(dev["image"], dev["gt_boxes"], dev["gt_classes"], dev["gt_mask"])
+        out = dict(losses)
+        out["loss"] = sum(losses[k] for k in dt.LOSS_KEYS)
+        return out
 
     def params(self) -> Dict[str, torch.Tensor]:
         named = dict(self.model.named_parameters())

@@ -8,8 +8,7 @@ from types import SimpleNamespace
 import pytest
 
 from benchmark import harness
-from benchmark.arch import arch_of
-from benchmark.flops import forward_flops, image_flops, roi_align_bytes
+from benchmark.archs.rc4 import arch_of, forward_flops, image_flops, roi_align_bytes
 from benchmark.trace import DeviceTrace
 
 CONFIG = json.loads((harness.ROOT / "configs" / "frcnn-r101-c4.json").read_text())

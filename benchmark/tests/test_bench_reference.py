@@ -6,10 +6,9 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.arch import arch_of, port_configs
+from benchmark import archs
 from benchmark.inputs import make_frames, make_records
 from benchmark.reference import ops
-from benchmark.reference.detector import Detector, train_batch
 from benchmark.reference.trainer import Trainer
 from benchmark.sut import ProgramDetector, ProgramTrainer
 from benchmark.weights import make_weights
@@ -20,14 +19,15 @@ CPU = torch.device("cpu")
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 1e-2)])
 def test_training_step_as_the_port(tiny, dtype, tol):
     c = tiny("frcnn-r101-c4.train", dtype)
-    pc = port_configs(c.config)
+    arch = archs.of(c.config)
+    pc = arch.port_configs(c.config)
     records = make_records(c.traffic, pc["detection"]["num_classes"], 3)
     program = ProgramTrainer(c.config, make_weights(c.config, 5, CPU), CPU)
-    ref = Trainer(arch_of(c.config), pc["detection"], pc["train"],
-                  make_weights(c.config, 5, CPU), c.config["compute_dtype"])
+    ref = Trainer(arch.reference(c.config, make_weights(c.config, 5, CPU),
+                                 c.config["compute_dtype"], train=True), pc["train"])
     assemble, arg = program.assembler()
     batch = assemble(records[:2], arg)
-    mine = train_batch(records[:2], pc["train"])
+    mine = arch.train_batch(records[:2], pc["train"])
     assert all(np.array_equal(batch[k], mine[k]) for k in batch)
     got = {k: float(v) for k, v in program.step(batch).items()}
     want = ref.step({k: torch.as_tensor(v).long() if k == "gt_classes" else torch.as_tensor(v)
@@ -45,11 +45,10 @@ def test_training_step_as_the_port(tiny, dtype, tol):
 def test_detections_as_the_port(tiny, dtype):
     c = tiny("frcnn-r101-c4.detect", dtype)
     frames = make_frames(c.traffic, 9, CPU)
-    det = port_configs(c.config)["detection"]
     bs = c.traffic["batch_size"]
     got = ProgramDetector(c.config, make_weights(c.config, 4, CPU), CPU, bs).detect(frames)
-    ref = Detector(arch_of(c.config), det, make_weights(c.config, 4, CPU),
-                   c.config["compute_dtype"])
+    ref = archs.of(c.config).reference(c.config, make_weights(c.config, 4, CPU),
+                                       c.config["compute_dtype"])
     want = ref.detect(torch.as_tensor(frames[:bs]))
     assert got["mask"][:bs].sum() > 0
     np.testing.assert_array_equal(got["mask"][:bs], want["mask"].numpy())

@@ -16,7 +16,7 @@ from typing import Dict
 
 import torch
 
-from benchmark.arch import arch_of, params
+from benchmark import archs
 
 # the cls_score bias of the first classes is raised, so that a seeded
 # detector keeps detections as a trained one would (a seeded init scores
@@ -31,8 +31,9 @@ def _std(p) -> float:
 
 
 def make_weights(config: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """name -> float32 tensor (contiguous, NCHW for conv weights)."""
-    specs = params(arch_of(config))
+    """name -> float32 tensor (contiguous, NCHW for conv weights): every
+    parameter of the configuration's architecture, in its draw order."""
+    specs = archs.of(config).param_specs(config)
     drawn = [p for p in specs if p.init[0] in ("lecun", "normal")]
     counts = [math.prod(p.shape) for p in drawn]
     gen = torch.Generator(device=device).manual_seed(seed)
