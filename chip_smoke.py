@@ -195,14 +195,33 @@ Phases, in order; any failure raises and the exit code is nonzero:
     RPN at 4 x 12,000 -> 2,000 and 8 x 6,000 -> 1,000, the class-aware
     field at 8 x 35,000 -> 100); time the whole call (sort and kernel),
     the sort alone and the blocked loop with CUDA events. Its launches
-    are counted in the main-path groups of phases 15 and 28-29: two a
+    are counted in the main-path groups of phases 15, 28-29 and 32: two a
     detect batch (RPN, class-aware), one a training step, one more a TTA
-    call.
+    call;
+31. bind csrc/roi_align.cu's levels entry points (K7's levels form, the
+    FPN's multi-level RoIAlign) and hold them against
+    roi_align_levels_plain (per-level roi_align_plain, in chunks of 512
+    RoIs) at the X101-FPN cells' geometries: the forward bit for bit at
+    8 images' P2-P5 of 768 x 1344 (256 channels) with 8,000 RoIs of every
+    level (and a ragged 7,993) and at 4 of 800 x 1344 with 512, one launch
+    a call; the backward within 1e-5 * T + 1e-6 (T the plain backward of
+    |dOut|) at 512 and a ragged 475 RoIs; time kernel and plain at 8,000
+    and 512 RoIs beside the bound (the output written once, the
+    backward's dOut read once; the maps are not counted, as a RoI reads
+    only what lies under it);
+32. X101-32x8d-FPN at FPNConfig's defaults on the main path: 16 seeded
+    768 x 1344 frames through detect_video_frames in batches of 8 with
+    K7's levels form (a warm-up run, a run) and with the plain per-level
+    RoIAlign, the same detections apart from near-ties and every frame
+    keeping some; then train_detector (shortest-edge inputs, 3 steps a
+    run) with K7 and with the plain form, step-1 losses within rtol 1e-4:
+    one levels forward a detect batch and a training step, one levels
+    backward a training step.
 
 Convolutions and matrix products run in full f32 (TF32 off throughout).
 The kernel launches of the main path are counted from zero before each
 main-path phase group and read right after it: phases 5-6, 9-10, 11-12,
-15, 18, 21, 23, 25 and 28-29. K4 and K5 run on no main path (the JAX
+15, 18, 21, 23, 25, 28-29 and 32. K4 and K5 run on no main path (the JAX
 package has no caller for them either); their check launches stand in
 their entries. It prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero
@@ -292,6 +311,19 @@ DET_TRAIN_TRACED_STEPS = 2  # the traced run of train_detector's loop
 DET_FRAMES, DET_BATCH, DET_SIZE = 20, 8, 640
 DET_RAISED_CLASSES, DET_RAISED_BIAS = 3, 3.0
 DET_TIE = 1e-5
+# X101-32x8d-FPN (phases 31-32): K7's levels form at the benchmark cells'
+# geometries, (name, images, canvas (H, W), RoIs, timed): P2-P5 of 256
+# channels at strides 4-32, RoIs of every level; the detector on the main
+# path, FPN_FRAMES frames of FPN_FRAME_HW in batches of DET_BATCH and
+# FPN_TRAIN_STEPS training steps a run
+K7_LEVELS_CASES = (("detect", 8, (768, 1344), 8000, True),
+                   ("detect_ragged", 8, (768, 1344), 7993, False),
+                   ("train", 4, (800, 1344), 512, True))
+K7_LEVELS_BACKWARD_CASES = (("train", 4, (800, 1344), 512, True),
+                            ("ragged", 4, (800, 1344), 475, False))
+FPN_SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
+LEVELS_CHUNK = 512  # RoIs per plain call: its P2 gather is (R, 14, 336, 256)
+FPN_FRAMES, FPN_FRAME_HW, FPN_TRAIN_STEPS = 16, (768, 1344), 3
 # K4, K5, K6 and probe checks: (name, objects C of the layout, rows); the
 # tool geometry is NUM_SEGMENTS x 992 pairs of tools/bench_pair_kernels.py
 VARIANT_CASES = (("tool", 35, NUM_SEGMENTS * 992), ("ragged", 35, NUM_SEGMENTS * 992 - 77),
@@ -1909,6 +1941,248 @@ def phase_detector_train(dev) -> dict:
     return result
 
 
+def k7_levels_inputs(gen, n, canvas_hw, r, dev, c=256):
+    """P2-P5 of n images on a canvas (channels-last, in [0, 1)), r RoIs in
+    image coordinates with sides from 1 to 900 pixels (every level), some
+    past the borders, one the whole canvas, one past its corner and one
+    empty, spread at random over the images; -> maps, boxes, batch_idx and
+    the RoIs' levels (detectron2's rule, on the device)."""
+    from tspn_tpu_torch.detection.fpn import assign_levels
+
+    h, w = canvas_hw
+    maps = [torch.rand((n, h // s, w // s, c), generator=gen, device=dev) for s in (4, 8, 16, 32)]
+    side = torch.exp(torch.rand((r, 2), generator=gen, device=dev) * math.log(900.0))
+    lo = (torch.rand((r, 2), generator=gen, device=dev) * 1.1 - 0.1) * torch.tensor(
+        [w, h], dtype=torch.float32, device=dev)
+    boxes = torch.cat([lo, lo + side], 1)
+    boxes[:3] = torch.tensor([[0.0, 0.0, w, h], [w - 3.0, h - 2.0, w + 40.0, h + 50.0],
+                              [8.0, 8.0, 8.0, 8.0]], device=dev)
+    idx = torch.randint(0, n, (r,), generator=gen, device=dev).to(torch.int32)
+    return maps, boxes.contiguous(), idx, assign_levels(boxes)
+
+
+def roi_align_levels_plain_chunked(maps, boxes, batch_idx, levels, scales,
+                                   output_size=7, sampling_ratio=2):
+    """roi_align_levels_plain over LEVELS_CHUNK RoIs at a time; the
+    signature of FPNFasterRCNN.roi_pool."""
+    from tspn_tpu_torch.ops import roi_align as ra
+
+    return torch.cat([
+        ra.roi_align_levels_plain(maps, boxes[k : k + LEVELS_CHUNK],
+                                  batch_idx[k : k + LEVELS_CHUNK], levels[k : k + LEVELS_CHUNK],
+                                  scales, output_size, sampling_ratio)
+        for k in range(0, boxes.shape[0], LEVELS_CHUNK)
+    ])
+
+
+def phase_k7_levels_check(dev) -> dict:
+    """K7's levels form against roi_align_levels_plain (in chunks) at the
+    FPN cells' geometries: the forward bit for bit, the backward within
+    1e-5 * T + 1e-6 (T the plain backward of |dOut|); timed beside their
+    bound, which counts the output written once (and the backward's dOut
+    read once) with the boxes, images and levels, not the maps: a RoI
+    reads only the part of one map under its box."""
+    from tspn_tpu_torch.ops import roi_align as ra
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    report = {"forward": {}, "backward": {}}
+    for name, n, hw, r, timed in K7_LEVELS_CASES:
+        maps, boxes, idx, levels = k7_levels_inputs(gen, n, hw, r, dev)
+
+        def kernel():
+            return ra.roi_align_levels(maps, boxes, idx, levels, FPN_SCALES, 7, 2)
+
+        before = ra.LAUNCHES["roi_align_levels"]
+        got = kernel()
+        if ra.LAUNCHES["roi_align_levels"] != before + 1:
+            raise AssertionError(f"roi_align_levels {name}: not one launch a call")
+        ref = roi_align_levels_plain_chunked(maps, boxes, idx, levels, FPN_SCALES)
+        torch.cuda.synchronize()
+        max_err = float((got - ref).abs().max())
+        if got.shape != (r, 7, 7, maps[0].shape[-1]) or not torch.equal(got, ref):
+            raise AssertionError(f"roi_align_levels {name}: K7 differs from plain (max err "
+                                 f"{max_err})")
+        del ref
+        per_level = torch.bincount(levels.long(), minlength=4).tolist()
+        entry = {"images": n, "canvas": list(hw), "rois": r, "rois_a_level": per_level,
+                 "max_abs_err": max_err,
+                 **bound((boxes, idx, levels), got, k7_ops(2, got.numel()), "f32")}
+        if timed:
+            entry["ms"] = cuda_median_ms(kernel)
+            entry["plain_ms"] = cuda_median_ms(
+                lambda: roi_align_levels_plain_chunked(maps, boxes, idx, levels, FPN_SCALES),
+                iters=1)
+        report["forward"][name] = entry
+        log(f"roi_align_levels {name}: {n} x P2-P5 of {hw[0]}x{hw[1]}, {r} RoIs "
+            f"({per_level} a level): equal to plain"
+            + (f"; kernel {entry['ms']:.4f} ms plain {entry['plain_ms']:.4f} ms"
+               if timed else "")
+            + f" bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}, "
+            f"{entry['bytes'] / 1e9:.3f} GB)")
+        del maps, boxes, idx, levels, got
+    for name, n, hw, r, timed in K7_LEVELS_BACKWARD_CASES:
+        maps, boxes, idx, levels = k7_levels_inputs(gen, n, hw, r, dev)
+        dout = torch.rand((r, 7, 7, maps[0].shape[-1]), generator=gen, device=dev) * 2 - 1
+        leaves = [m.requires_grad_(True) for m in maps]
+        out = ra.roi_align_levels(leaves, boxes, idx, levels, FPN_SCALES, 7, 2)
+
+        def kernel():
+            return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+        def plain(cot):
+            total = [torch.zeros_like(m) for m in maps]
+            for k in range(0, r, 128):
+                f = [m.detach().requires_grad_(True) for m in maps]
+                part = ra.roi_align_levels_plain(f, boxes[k : k + 128], idx[k : k + 128],
+                                                 levels[k : k + 128], FPN_SCALES, 7, 2)
+                grads = torch.autograd.grad((part * cot[k : k + 128]).sum(), f,
+                                            allow_unused=True)
+                total = [t if g is None else t + g for t, g in zip(total, grads)]
+            return total
+
+        before = ra.LAUNCHES["roi_align_levels_backward"]
+        got = kernel()
+        if ra.LAUNCHES["roi_align_levels_backward"] != before + 1:
+            raise AssertionError(f"roi_align_levels backward {name}: not one launch a call")
+        worst, max_err = 0.0, 0.0
+        for g, ref, terms in zip(got, plain(dout), plain(dout.abs())):
+            err = (g.double() - ref.double()).abs()
+            worst = max(worst, float((err / (1e-5 * terms.double() + 1e-6)).max()))
+            max_err = max(max_err, float(err.max()))
+            del err
+        if worst > 1.0:
+            raise AssertionError(f"roi_align_levels backward {name}: |kernel - plain| exceeds "
+                                 f"the bound (max err {max_err}, worst err/bound {worst})")
+        entry = {"images": n, "canvas": list(hw), "rois": r, "max_abs_err": max_err,
+                 "worst_err_over_bound": worst,
+                 **bound((dout, boxes, idx, levels), boxes.new_empty(0),
+                         k7_ops(2, dout.numel()), "f32")}
+        if timed:
+            entry["ms"] = cuda_median_ms(kernel)
+            entry["plain_ms"] = cuda_median_ms(lambda: plain(dout), iters=1)
+        report["backward"][name] = entry
+        log(f"roi_align_levels backward {name}: {n} x P2-P5 of {hw[0]}x{hw[1]}, {r} RoIs: "
+            f"max|err| {max_err:.3e} (worst err/bound {worst:.3f})"
+            + (f" kernel {entry['ms']:.4f} ms (the four dF maps zeroed with it) plain "
+               f"{entry['plain_ms']:.4f} ms" if timed else "")
+            + f" bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}, "
+            f"{entry['bytes'] / 1e9:.3f} GB)")
+        del maps, leaves, boxes, idx, levels, dout, out, got
+    torch.cuda.empty_cache()
+    return report
+
+
+def fpn_frames(n: int, seed: int):
+    """(n, 768, 1344, 3) float32 frames in [0, 1]: dim noise with six flat
+    coloured rectangles each."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    h, w = FPN_FRAME_HW
+    frames = (rng.rand(n, h, w, 3) * 0.25).astype(np.float32)
+    for t in range(n):
+        for _ in range(6):
+            y0, x0 = rng.randint(0, h - 64), rng.randint(0, w - 64)
+            hh, ww = rng.randint(32, h // 2), rng.randint(32, w // 2)
+            frames[t, y0 : y0 + hh, x0 : x0 + ww] = rng.rand(3)
+    return frames
+
+
+def phase_fpn(dev) -> dict:
+    """X101-32x8d-FPN at FPNConfig's defaults (the published widths) on the
+    port's main path: detect_video_frames with K7's levels form, then with
+    the plain per-level RoIAlign (the same detections apart from
+    near-ties); train_detector (shortest-edge 800 / 1333 inputs) with K7
+    and with the plain form (step-1 losses within rtol 1e-4, every loss
+    finite)."""
+    import logging
+
+    import numpy as np
+
+    from tspn_tpu_torch.detection import train as dt
+    from tspn_tpu_torch.detection.fpn import FPNConfig, FPNFasterRCNN
+    from tspn_tpu_torch.detection.inputs import DetectorTrainConfig
+    from tspn_tpu_torch.ops import roi_align as ra
+    from tspn_tpu_torch.pipeline import detect_video_frames
+
+    t0 = time.perf_counter()
+    cfg = FPNConfig()
+    model = FPNFasterRCNN(cfg, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    with torch.no_grad():  # so that the 0.05 score threshold keeps detections
+        model.cls_score.bias[:DET_RAISED_CLASSES] = DET_RAISED_BIAS
+    model = model.to(memory_format=torch.channels_last).eval()
+    frames = fpn_frames(FPN_FRAMES, SEED)
+    log(f"fpn detect: X{cfg.depth}-{cfg.groups}x{cfg.width_per_group}d-FPN, "
+        f"{cfg.num_classes} classes, {FPN_FRAMES} frames of {FPN_FRAME_HW}, batch "
+        f"{DET_BATCH}; model and frames made in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    dets = {}
+    for variant in ("kernel", "kernel", "plain"):  # the first is a warm-up
+        model.roi_pool = (ra.roi_align_levels if variant == "kernel"
+                          else roi_align_levels_plain_chunked)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = detect_video_frames(model, frames, device=dev, batch_size=DET_BATCH)
+        seconds = time.perf_counter() - t0
+        dets[variant] = {k: torch.as_tensor(v) for k, v in out.items()}
+        log(f"fpn detect {variant}: {seconds:.2f} s for {FPN_FRAMES} frames (host clock)")
+    model.roi_pool = ra.roi_align_levels
+    kept = dets["kernel"]["mask"].bool()
+    if not bool(kept.any(dim=1).all()) or not bool(torch.isfinite(
+            dets["kernel"]["boxes"][kept]).all()):
+        raise AssertionError("fpn detect: a frame without detections, or a bad box")
+    ties = same_detections_but_ties(dets["kernel"], dets["plain"])
+    result = {"detect": {"frames": FPN_FRAMES, "frame_hw": list(FPN_FRAME_HW),
+                         "batch": DET_BATCH, "kept_detections": int(kept.sum()),
+                         "near_ties_excluded": ties,
+                         "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}}
+    log(f"fpn detect: {int(kept.sum())} detections kept, every frame keeps some; K7 and "
+        f"plain equal apart from {ties} near-tie slots")
+    del model, dets
+    torch.cuda.empty_cache()
+
+    records = detector_train_records(DET_TRAIN_RECORDS, SEED)
+    quiet = logging.getLogger("chip_smoke.fpn_train")
+    quiet.setLevel(logging.WARNING)
+    train_cfg = DetectorTrainConfig(max_iter=FPN_TRAIN_STEPS, log_every=1,
+                                    input_policy="shortest_edge")
+    first, rates = {}, {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for variant in ("kernel", "plain"):
+        model, hist = dt.train_detector(
+            records, cfg, train_cfg, seed=SEED, logger=quiet, device=dev,
+            roi_pool=None if variant == "kernel" else roi_align_levels_plain_chunked)
+        torch.cuda.synchronize()
+        losses = hist["losses"]
+        if not isinstance(model, FPNFasterRCNN) or len(losses) != FPN_TRAIN_STEPS or not all(
+                np.isfinite(v) for step in losses for v in step.values()):
+            raise AssertionError(f"fpn train {variant}: bad run, losses {losses}")
+        first[variant] = losses[0]
+        rates[variant] = 1.0 / statistics.median(hist["step_seconds"][1:])
+        del model
+        torch.cuda.empty_cache()
+    diff = {k: abs(first["kernel"][k] - first["plain"][k]) / abs(first["plain"][k])
+            for k in first["plain"]}
+    if max(diff.values()) > 1e-4:
+        raise AssertionError(f"fpn train: step-1 losses kernel {first['kernel']} plain "
+                             f"{first['plain']} beyond rtol 1e-4")
+    result["train"] = {"steps": FPN_TRAIN_STEPS, "ims_per_batch": train_cfg.ims_per_batch,
+                       "first_losses": first, "step1_rel_diff": diff,
+                       "steps_per_s_host_clock": rates,
+                       "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    log(f"fpn train: {FPN_TRAIN_STEPS} steps a run, step-1 losses {first['kernel']} (max "
+        f"rel diff to plain {max(diff.values()):.3e}); steps/s (host clock) {rates}")
+    # launches: one levels forward a detect batch in the two kernel detect
+    # runs; one forward and one backward a kernel training step. NMS: two
+    # calls a detect batch (the RPN's over all levels, the class-aware) in
+    # all three detect runs; one a training step in both training runs
+    batches = -(-FPN_FRAMES // DET_BATCH)
+    result["want_launches"] = {"roi_align_levels": 2 * batches + FPN_TRAIN_STEPS,
+                               "roi_align_levels_backward": FPN_TRAIN_STEPS,
+                               "nms": 3 * 2 * batches + 2 * FPN_TRAIN_STEPS}
+    return result
+
+
 def nms_inputs(name: str, dev):
     """One of the cells' NMS calls (tools/nms_cases.py) on the card ->
     (boxes, scores, valid, top_k, threshold)."""
@@ -2217,8 +2491,19 @@ def main() -> int:
             raise AssertionError(f"a main-path phase launched no {kernel} kernel")
     report_build("nms")
     nms_checks = phase_nms(dev)
+
+    report_build("roi_align")
+    _cuda.roi_align_levels_library()
+    _cuda.roi_align_levels_backward_library()
+    log("roi_align.cu entry points tspn_roi_align_levels_launch and "
+        "tspn_roi_align_levels_backward_launch bound")
+    k7l_checks = phase_k7_levels_check(dev)
+    fpn, counts_fpn = main_path("X101-FPN detect + train", lambda: phase_fpn(dev))
+    if {k: v for k, v in counts_fpn.items() if v} != fpn["want_launches"]:
+        raise AssertionError(f"X101-FPN detect + train launches {counts_fpn}, want "
+                             f"{fpn['want_launches']}")
     all_counts = (counts_int8, counts_fused, counts_ppn, counts_det, counts_tool, counts_rel,
-                  counts_bf16, counts_roi, counts_train)
+                  counts_bf16, counts_roi, counts_train, counts_fpn)
     launches = {k: sum(c[k] for c in all_counts) for k in counts_int8}
     checked = variant_checks.pop("check_launches")
     rel_checked = rel_checks.pop("check_launches")
@@ -2238,6 +2523,7 @@ def main() -> int:
                     "roi_align_backward_geometries": k7g_checks,
                     "detector_train": det_train, "detector_bf16": detect_bf16,
                     "nms_geometries": nms_checks,
+                    "roi_align_levels_geometries": k7l_checks, "detector_fpn": fpn,
                     "main_path_launches": {"int8_serve": counts_int8,
                                            "fused": counts_fused, "ppn": counts_ppn,
                                            "detector": counts_det,
@@ -2245,7 +2531,8 @@ def main() -> int:
                                            "bench_rel_tools": counts_rel,
                                            "bf16": counts_bf16,
                                            "bench_roialign_tools": counts_roi,
-                                           "detector_train_bf16_detect": counts_train}}))
+                                           "detector_train_bf16_detect": counts_train,
+                                           "detector_fpn": counts_fpn}}))
     log(json.dumps({"kernels": [
         kernel_entry("q8s", "tspn_tpu_torch/csrc/q8s_sm90.cu",
                      "tspn_tpu/ops/pairwise.py:481", launches["q8s"], checks["q8s"], "rel"),
@@ -2275,6 +2562,14 @@ def main() -> int:
                                               for v in k7g_checks["bf16"].values()),
                            **{k: k7g_checks["bf16"]["train"][k] for k in
                               ("ms", "plain_ms", "bound_ms", "bound_by")}}),
+        kernel_entry("roi_align_levels", "tspn_tpu_torch/csrc/roi_align.cu",
+                     "none (the JAX package has no FPN)", launches["roi_align_levels"],
+                     k7l_checks["forward"], "detect"),
+        kernel_entry("roi_align_levels_backward", "tspn_tpu_torch/csrc/roi_align.cu",
+                     "none (the JAX package has no FPN)",
+                     launches["roi_align_levels_backward"], k7l_checks["backward"], "train",
+                     worst_err_over_bound=max(v["worst_err_over_bound"]
+                                              for v in k7l_checks["backward"].values())),
         kernel_entry("q8i8", "tspn_tpu_torch/csrc/q8s.cu",
                      "tspn_tpu/ops/pairwise.py:571", launches["q8i8"],
                      variant_checks["q8i8"], "tool", check_launches=checked["q8i8"]),

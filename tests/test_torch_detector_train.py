@@ -453,14 +453,16 @@ def _flags(path):
 
 def test_cli_needs_a_card_unless_told_otherwise(monkeypatch):
     """The JAX tool's flags plus ``--device``, which defaults to cuda and
-    stops with a hint when there is no card."""
+    stops with a hint when there is no card, and ``--arch`` (the detector:
+    R101-C4 by default, or X101-FPN)."""
     from tspn_tpu_torch.tools import train_detector as tool
 
     assert _flags(tool.__file__) - _flags(os.path.join(REPO, "tools", "train_detector.py")) \
-        == {"--device"}
+        == {"--device", "--arch"}
     assert _flags(os.path.join(REPO, "tools", "train_detector.py")) <= _flags(tool.__file__)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
         tool.parse_args(["--data_dir", "x"])
     args = tool.parse_args(["--data_dir", "x", "--device", "cpu"])
-    assert (args.device, args.dataset, args.ims_per_batch) == ("cpu", "vidvrd", 4)
+    assert (args.device, args.dataset, args.ims_per_batch, args.arch) == (
+        "cpu", "vidvrd", 4, "r-c4")

@@ -91,7 +91,8 @@ def test_dispatch_on_cpu_runs_the_plain_version(feat):
     tra.reset_launches()
     f, b = torch.from_numpy(feat), torch.from_numpy(BOXES)
     out = tra.roi_align(f, b, None, 14, 2)
-    assert tra.LAUNCHES == {"roi_align": 0, "roi_align_bf16": 0, "roi_align_backward": 0}
+    assert tra.LAUNCHES == {"roi_align": 0, "roi_align_bf16": 0, "roi_align_backward": 0,
+                            "roi_align_levels": 0, "roi_align_levels_backward": 0}
     assert torch.equal(out, tra.roi_align_plain(f, b, None, 14, 2))
     assert torch.equal(out, tra.roi_align(f[None], b, torch.zeros(len(BOXES),
                                                                   dtype=torch.int32)))

@@ -34,6 +34,7 @@ from tspn_tpu_torch.detection.resnet import (
     ResNetC4Backbone,
 )
 from tspn_tpu_torch.detection.rpn import (
+    Proposals,
     RPNHead,
     make_anchors,
     match_anchors_to_gt,
@@ -84,7 +85,11 @@ class FasterRCNN(nn.Module):
     ``roi_align`` dispatch); a caller may set another with its signature,
     as ``chip_smoke.py`` does to hold K7 against the plain version.
     ``forward`` is the training forward (the four losses); ``detect``,
-    ``detect_tta`` and ``roi_classeme`` serve."""
+    ``detect_tta`` and ``roi_classeme`` serve. Another architecture
+    (``detection/fpn.py``) subclasses it and overrides what differs:
+    ``build``, ``features``, ``_rpn``, ``anchors``, ``proposals`` and
+    ``_roi_forward``; the sampling, the losses and the post-processing are
+    these."""
 
     def __init__(self, cfg: DetectionConfig = DetectionConfig(),
                  generator: torch.Generator | None = None,
@@ -94,13 +99,17 @@ class FasterRCNN(nn.Module):
             raise ValueError(f"detector compute dtype {dtype}: float32 or bfloat16")
         self.cfg = cfg
         self.dtype = dtype
+        self.build(cfg, dtype)
+        self.roi_pool = roi_align
+        self.reset_parameters(generator)
+
+    def build(self, cfg, dtype: torch.dtype) -> None:
+        """The modules, in the order their parameters are drawn."""
         self.backbone = ResNetC4Backbone(cfg.depth, dtype)
         self.rpn_head = RPNHead(1024, len(cfg.anchor_sizes) * len(cfg.anchor_ratios), dtype)
         self.res5 = Res5Head(cfg.depth, dtype)
         self.cls_score = Linear(2048, cfg.num_classes + 1, dtype=dtype)
         self.bbox_pred = Linear(2048, 4 * cfg.num_classes, dtype=dtype)
-        self.roi_pool = roi_align
-        self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -133,7 +142,19 @@ class FasterRCNN(nn.Module):
             return self.backbone(x).permute(0, 2, 3, 1).contiguous()
 
     def _rpn(self, feats: torch.Tensor):
+        """-> objectness logits (N, K) and deltas (N, K, 4) over all anchors."""
         return self.rpn_head(feats.permute(0, 3, 1, 2))
+
+    def anchors(self, feats: torch.Tensor) -> torch.Tensor:
+        """(K, 4) xyxy anchors in ``_rpn``'s order."""
+        c = self.cfg
+        return make_anchors(feats.shape[1], feats.shape[2], c.stride, c.anchor_sizes,
+                            c.anchor_ratios, device=feats.device)
+
+    def proposals(self, logits, deltas, anchors, image_hw: tuple, pre_nms_topk: int,
+                  post_nms_topk: int) -> Proposals:
+        return select_proposals(logits, deltas, anchors, image_hw, pre_nms_topk,
+                                post_nms_topk, self.cfg.rpn_nms_threshold)
 
     def _roi_forward(self, feats: torch.Tensor, boxes: torch.Tensor):
         """feats (N, h, w, C), boxes (N, P, 4) image coords -> (cls_logits
@@ -162,15 +183,13 @@ class FasterRCNN(nn.Module):
         feats = self.features(images)
         with span("tspn.rpn"):
             logits, deltas = self._rpn(feats)
-            anchors = make_anchors(feats.shape[1], feats.shape[2], c.stride, c.anchor_sizes,
-                                   c.anchor_ratios, device=feats.device)
+            anchors = self.anchors(feats)
             rpn_targets = match_anchors_to_gt(anchors, gt_boxes, gt_mask)
             loss_obj, loss_box = rpn_loss(logits, deltas, anchors, rpn_targets,
                                           c.rpn_batch_size, c.rpn_positive_fraction)
             with torch.no_grad():
-                props = select_proposals(logits.detach(), deltas.detach(), anchors, (h, w),
-                                         c.pre_nms_topk_train, c.post_nms_topk_train,
-                                         c.rpn_nms_threshold)
+                props = self.proposals(logits.detach(), deltas.detach(), anchors, (h, w),
+                                       c.pre_nms_topk_train, c.post_nms_topk_train)
 
         with torch.no_grad():
             # the GT boxes join the proposals (detectron2's C4 practice)
@@ -215,20 +234,17 @@ class FasterRCNN(nn.Module):
 
     # ------------------------------------------------------------ inference
     @torch.no_grad()
-    def detect_from_features(self, feats: torch.Tensor,
-                             image_hw: tuple) -> Dict[str, torch.Tensor]:
+    def detect_from_features(self, feats, image_hw: tuple) -> Dict[str, torch.Tensor]:
         """Everything after the backbone: RPN, proposals, RoI head and the
         class-aware NMS -> fixed-size detections: boxes (N, Dmax, 4),
         scores (N, Dmax), classes (N, Dmax), mask (N, Dmax)."""
         c = self.cfg
         h, w = image_hw
-        n = feats.shape[0]
         with span("tspn.rpn"):
             logits, deltas = self._rpn(feats)
-            anchors = make_anchors(feats.shape[1], feats.shape[2], c.stride,
-                                   c.anchor_sizes, c.anchor_ratios, device=feats.device)
-            props = select_proposals(logits, deltas, anchors, (h, w), c.pre_nms_topk_test,
-                                     c.post_nms_topk_test, c.rpn_nms_threshold)
+            props = self.proposals(logits, deltas, self.anchors(feats), (h, w),
+                                   c.pre_nms_topk_test, c.post_nms_topk_test)
+        n = props.boxes.shape[0]
         cls_logits, box_deltas = self._roi_forward(feats, props.boxes)
         with span("tspn.postprocess"):
             probs = torch.softmax(cls_logits, dim=-1)[..., : c.num_classes]  # (N, P, C)
@@ -240,7 +256,7 @@ class FasterRCNN(nn.Module):
             p = probs.shape[1]
             flat_scores = (probs * props.mask[..., None]).reshape(n, p * c.num_classes)
             flat_boxes = boxes_per_class.reshape(n, p * c.num_classes, 4)
-            flat_classes = torch.arange(c.num_classes, device=feats.device).repeat(p)
+            flat_classes = torch.arange(c.num_classes, device=cls_logits.device).repeat(p)
 
             keep_score = flat_scores > c.score_threshold
             # class-aware NMS: offset boxes by class so classes never suppress

@@ -1,11 +1,13 @@
-"""Region Proposal Network, single-level C4 (counterpart of
-tspn_tpu/detection/rpn.py), for a batch of images at once.
+"""Region Proposal Network (the single-level C4 form is the counterpart
+of tspn_tpu/detection/rpn.py), for a batch of images at once.
 
-Inference: 3x3 conv + 1x1 objectness / delta heads over stride-16
-anchors, then pre-NMS top-k, decode, clip and NMS into fixed-size
-proposal lists. Training: IoU anchor matching (fg 0.7 / bg 0.3 / each
-GT's best anchors forced fg), the deterministic balanced sampler and the
-RPN loss. Every function takes a leading image axis where JAX's takes one
+Inference: 3x3 conv + 1x1 objectness / delta heads over the anchors, then
+pre-NMS top-k, decode, clip and NMS into fixed-size proposal lists: over
+one level's anchors (``select_proposals``, C4), or the top-k of each
+level and one NMS over all of them, the levels kept apart by offsets
+(``select_level_proposals``, FPN). Training: IoU anchor matching (fg 0.7
+/ bg 0.3 / each GT's best anchors forced fg), the deterministic balanced
+sampler and the RPN loss. Every function takes a leading image axis where JAX's takes one
 image under ``vmap``; ties break as JAX's do (a stable sort on the same
 key, the first maximum).
 """
@@ -59,11 +61,25 @@ def select_proposals(
 ) -> Proposals:
     """Decode + clip + NMS the top anchors of each image into fixed-size
     proposals."""
-    n, k_all = logits.shape
-    k = min(pre_nms_topk, k_all)
-    # score order, ties by index (lax.top_k's; torch.topk promises none)
+    top_scores, top_idx = _top(logits, pre_nms_topk)
+    return _decode_nms(top_scores, top_idx, deltas, anchors, image_hw, post_nms_topk,
+                       nms_threshold, min_size)
+
+
+def _top(logits: torch.Tensor, k: int):
+    """The ``k`` highest logits of each row and their indices, in score
+    order, ties by index (lax.top_k's; torch.topk promises none)."""
+    k = min(k, logits.shape[1])
     top_scores, top_idx = torch.sort(logits, dim=-1, descending=True, stable=True)
-    top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+    return top_scores[:, :k], top_idx[:, :k]
+
+
+def _decode_nms(top_scores, top_idx, deltas, anchors, image_hw, post_nms_topk,
+                nms_threshold, min_size, offset=None) -> Proposals:
+    """Decode and clip the chosen anchors' boxes and NMS them (``offset``
+    added to the boxes for the NMS alone keeps groups apart) into
+    ``post_nms_topk`` proposals an image."""
+    n, k = top_idx.shape
     boxes = decode_boxes(
         torch.gather(deltas, 1, top_idx[..., None].expand(n, k, 4)), anchors[top_idx]
     )
@@ -71,12 +87,42 @@ def select_proposals(
     wh_ok = ((boxes[..., 2] - boxes[..., 0]) > min_size) & (
         (boxes[..., 3] - boxes[..., 1]) > min_size
     )
-    idx, keep = nms(boxes, top_scores, nms_threshold, post_nms_topk, valid=wh_ok)
+    idx, keep = nms(boxes if offset is None else boxes + offset, top_scores, nms_threshold,
+                    post_nms_topk, valid=wh_ok)
     return Proposals(
         boxes=torch.gather(boxes, 1, idx[..., None].expand(*idx.shape, 4)),
         scores=torch.sigmoid(torch.gather(top_scores, 1, idx)) * keep,
         mask=keep,
     )
+
+
+def select_level_proposals(
+    logits: torch.Tensor,     # (N, K) over all levels' anchors, level after level
+    deltas: torch.Tensor,     # (N, K, 4)
+    anchors: torch.Tensor,    # (K, 4)
+    level_sizes: Sequence[int],
+    image_hw: tuple,
+    pre_nms_topk: int,
+    post_nms_topk: int,
+    nms_threshold: float = 0.7,
+    min_size: float = 0.0,
+) -> Proposals:
+    """detectron2's ``find_top_rpn_proposals``: the ``pre_nms_topk`` best
+    anchors of each level (``level_sizes`` anchors each, in order), then
+    decode, clip and one NMS over all of them with each level's boxes
+    moved apart by an offset, as the class-aware NMS keeps classes apart,
+    into ``post_nms_topk`` proposals an image."""
+    scores, idx, level = [], [], []
+    start = 0
+    for i, size in enumerate(level_sizes):
+        s, k = _top(logits[:, start: start + size], pre_nms_topk)
+        scores.append(s)
+        idx.append(k + start)
+        level.append(torch.full((k.shape[1],), float(i), device=logits.device))
+        start += size
+    offset = torch.cat(level)[None, :, None] * (max(image_hw) + 2.0)
+    return _decode_nms(torch.cat(scores, dim=1), torch.cat(idx, dim=1), deltas, anchors,
+                       image_hw, post_nms_topk, nms_threshold, min_size, offset)
 
 
 def make_anchors(
@@ -138,8 +184,7 @@ def sample_targets(
         if priority is None:
             rank = torch.where(mask, torch.cumsum(mask.long(), dim=1), 10**9)
             return mask & (rank <= budget)
-        key = torch.where(mask, priority, torch.tensor(float("-inf"), dtype=priority.dtype,
-                                                       device=priority.device))
+        key = torch.where(mask, priority, float("-inf"))
         order = torch.argsort(-key, dim=1, stable=True)
         rank = torch.empty_like(order)
         rank.scatter_(1, order, torch.arange(order.shape[1], device=order.device)

@@ -2,7 +2,7 @@
 
 The reference recipe's operating point (IMS_PER_BATCH 4, BASE_LR 2.5e-4,
 MAX_ITER 100k, ROI batch 128, 35 classes) driving the port's FasterRCNN
-with SGD and momentum on one device, in float32 or, with
+(R-C4, or X101-FPN for an ``FPNConfig``) with SGD and momentum on one device, in float32 or, with
 ``DetectorTrainConfig.mixed_precision``, in bfloat16 compute over float32
 parameters. Batches come from the letterbox or the ResizeShortestEdge
 policy (``detection/inputs.py``), grouped by orientation bucket.
@@ -37,11 +37,21 @@ from tspn_tpu_torch.detection.inputs import (
     group_by_orientation,
     make_batch,
 )
-from tspn_tpu_torch.detection.rcnn import DetectionConfig, FasterRCNN
+from tspn_tpu_torch.detection.rcnn import FasterRCNN
 from tspn_tpu_torch.runtime.logging_utils import MetricLogger, setup_logger
 from tspn_tpu_torch.runtime.spans import span
 
 LOSS_KEYS = ("loss_rpn_obj", "loss_rpn_box", "loss_cls", "loss_box")
+
+
+def build_detector(cfg, generator: torch.Generator | None = None,
+                   dtype: torch.dtype = torch.float32) -> FasterRCNN:
+    """The detector a config describes: Faster R-CNN X101-FPN for an
+    ``FPNConfig``, R-C4 for a ``DetectionConfig``."""
+    from tspn_tpu_torch.detection.fpn import FPNConfig, FPNFasterRCNN
+
+    cls = FPNFasterRCNN if isinstance(cfg, FPNConfig) else FasterRCNN
+    return cls(cfg, generator=generator, dtype=dtype)
 
 
 def learning_rate(step: int, cfg: DetectorTrainConfig) -> float:
@@ -102,7 +112,7 @@ def _read_back(entry: Dict[str, torch.Tensor]) -> Dict[str, float]:
 
 def train_detector(
     records: List[dict],
-    det_cfg: DetectionConfig,
+    det_cfg,
     train_cfg: DetectorTrainConfig,
     seed: int = 0,
     logger=None,
@@ -111,7 +121,9 @@ def train_detector(
     eval_records: Optional[List[dict]] = None,
     roi_pool=None,
 ):
-    """Train from a seeded init -> (model, history).
+    """Train from a seeded init -> (model, history). ``det_cfg`` is a
+    ``DetectionConfig`` (R-C4) or an ``FPNConfig`` (X101-FPN,
+    ``build_detector``).
 
     ``history`` holds every step's losses (read back at log boundaries),
     the host seconds between consecutive steps (``step_seconds``: away from
@@ -131,7 +143,7 @@ def train_detector(
         logger = setup_logger("detector_train", save_dir="logs")
     device = torch.device(device)
     dtype = torch.bfloat16 if train_cfg.mixed_precision else torch.float32
-    model = FasterRCNN(det_cfg, generator=torch.Generator().manual_seed(seed), dtype=dtype)
+    model = build_detector(det_cfg, generator=torch.Generator().manual_seed(seed), dtype=dtype)
     model = model.to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)

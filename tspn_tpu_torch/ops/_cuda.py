@@ -126,6 +126,14 @@ def roi_align_backward_library() -> ctypes.CDLL:
     return _bound("roi_align", "tspn_roi_align_backward_launch", 4, 9)
 
 
+def roi_align_levels_library() -> ctypes.CDLL:
+    return _bound("roi_align", "tspn_roi_align_levels_launch", 8, 15, n_floats=4)
+
+
+def roi_align_levels_backward_library() -> ctypes.CDLL:
+    return _bound("roi_align", "tspn_roi_align_levels_backward_launch", 8, 15, n_floats=4)
+
+
 def roi_sep_fused_library() -> ctypes.CDLL:
     return _bound("roi_probes", "tspn_roi_sep_fused_launch", 3, 8)
 

@@ -26,17 +26,32 @@ A bfloat16 map is widened exactly to float32, pooled in float32 and
 rounded once to bfloat16 (RNE), in the kernel and in the plain version
 alike; the backward sums into a float32 buffer and rounds it to bfloat16
 once.
+
+The levels form pools each RoI from the map of its own level of a
+feature pyramid (float32 maps (N, H_l, W_l, C), up to four; boxes in image
+coordinates; ``levels`` (R,) int32 computed on the device; each level's
+scale 1 / its stride, a power of two):
+
+- ``roi_align_levels_plain``: per-level ``roi_align_plain`` on the RoIs of
+  each level (a boolean selection, so a host sync on a card): the CPU path
+  and the kernel's oracle.
+- ``roi_align_levels``: the dispatch. On a CUDA tensor one launch of K7's
+  levels kernel for all levels' RoIs, no host sync, and one launch of its
+  backward when a map requires a gradient.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 # K7 launches made by the dispatch on CUDA tensors: the forward on f32 and
 # on bf16 maps, and the backward (either type)
-LAUNCHES = {"roi_align": 0, "roi_align_bf16": 0, "roi_align_backward": 0}
+LAUNCHES = {"roi_align": 0, "roi_align_bf16": 0, "roi_align_backward": 0,
+            "roi_align_levels": 0, "roi_align_levels_backward": 0}
+MAX_LEVELS = 4
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -316,3 +331,136 @@ def roi_align(
     if features.device.type == "cpu":
         return roi_align_plain(features, boxes, batch_idx, output_size, sampling_ratio)
     raise ValueError(f"roi_align: no implementation for device {features.device}")
+
+
+# ------------------------------------------------------------------ levels
+def roi_align_levels_plain(maps, boxes, batch_idx, levels, scales, output_size: int = 7,
+                           sampling_ratio: int = 2) -> torch.Tensor:
+    """RoI r pooled from ``maps[levels[r]]`` at ``boxes[r] * scales[l]`` by
+    ``roi_align_plain`` -> (R, out, out, C); autograd reaches every map."""
+    r, c = boxes.shape[0], maps[0].shape[-1]
+    out = maps[0].new_zeros((r, output_size, output_size, c))
+    for lvl, (fmap, scale) in enumerate(zip(maps, scales)):
+        sel = torch.nonzero(levels == lvl)[:, 0]
+        if len(sel):
+            out = out.index_copy(0, sel, roi_align_plain(fmap, boxes[sel] * scale,
+                                                         batch_idx[sel], output_size,
+                                                         sampling_ratio))
+    return out
+
+
+def _levels_ints(maps):
+    """The entry points' level table: (n_levels, h0, w0, .. h3, w3), the
+    unused slots 0."""
+    hw = [d for m in maps for d in m.shape[1:3]]
+    return [len(maps)] + hw + [0] * (2 * MAX_LEVELS - len(hw))
+
+
+def _check_levels(maps, boxes, batch_idx, levels, scales):
+    if not 1 <= len(maps) <= MAX_LEVELS or len(scales) != len(maps):
+        raise ValueError(f"roi_align_levels: 1 to {MAX_LEVELS} maps, a scale each")
+    n, c = maps[0].shape[0], maps[0].shape[-1]
+    if any(m.dtype != torch.float32 or m.dim() != 4 or m.shape[0] != n or m.shape[-1] != c
+           for m in maps):
+        raise TypeError("roi_align_levels: float32 maps (N, H, W, C) of one N and C")
+    if levels.dtype != torch.int32 or levels.shape != batch_idx.shape or not \
+            levels.is_contiguous():
+        raise TypeError("roi_align_levels: levels must be contiguous int32, one a RoI")
+    if levels.device != maps[0].device:
+        raise ValueError("roi_align_levels: all operands must be on one device")
+
+
+def _pointers(tensors):
+    return [t.data_ptr() for t in tensors] + [0] * (MAX_LEVELS - len(tensors))
+
+
+def _roi_align_levels_cuda(maps, boxes, batch_idx, levels, scales, output_size,
+                           sampling_ratio):
+    from tspn_tpu_torch.ops import _cuda
+
+    for m in maps:
+        _check_cuda_operands(m, boxes, batch_idx, output_size, sampling_ratio)
+    n, c = maps[0].shape[0], maps[0].shape[-1]
+    r = boxes.shape[0]
+    out = torch.empty((r, output_size, output_size, c), dtype=torch.float32,
+                      device=boxes.device)
+    if r == 0 or c == 0:
+        return out
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream(boxes.device).cuda_stream
+        err = _cuda.roi_align_levels_library().tspn_roi_align_levels_launch(
+            *_pointers(maps), boxes.data_ptr(), batch_idx.data_ptr(), levels.data_ptr(),
+            out.data_ptr(), r, n, *_levels_ints(maps), c, output_size, sampling_ratio,
+            _vec(c, *maps, out), *(list(scales) + [1.0] * (MAX_LEVELS - len(maps))),
+            ctypes.c_void_p(stream))
+    _cuda.check(err, "tspn_roi_align_levels_launch")
+    LAUNCHES["roi_align_levels"] += 1
+    return out
+
+
+def _roi_align_levels_backward_cuda(grad_out, boxes, batch_idx, levels, scales, shapes,
+                                    output_size, sampling_ratio):
+    """dL/dmaps (one f32 buffer, zeroed once, split by level) from dL/dout."""
+    from tspn_tpu_torch.ops import _cuda
+
+    grad = grad_out.float().contiguous()
+    _check_cuda_operands(grad, boxes, batch_idx, output_size, sampling_ratio)
+    sizes = [math.prod(s) for s in shapes]
+    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=grad.device)
+    dmaps = [t.view(s) for t, s in zip(flat.split(sizes), shapes)]
+    r, c = boxes.shape[0], shapes[0][-1]
+    if r and c:
+        with torch.cuda.device(grad.device):
+            stream = torch.cuda.current_stream(grad.device).cuda_stream
+            err = _cuda.roi_align_levels_backward_library(
+            ).tspn_roi_align_levels_backward_launch(
+                grad.data_ptr(), boxes.data_ptr(), batch_idx.data_ptr(), levels.data_ptr(),
+                *_pointers(dmaps), r, shapes[0][0], *_levels_ints(dmaps), c,
+                output_size, sampling_ratio, _vec(c, grad, *dmaps),
+                *(list(scales) + [1.0] * (MAX_LEVELS - len(dmaps))), ctypes.c_void_p(stream))
+        _cuda.check(err, "tspn_roi_align_levels_backward_launch")
+        LAUNCHES["roi_align_levels_backward"] += 1
+    return dmaps
+
+
+class RoIAlignLevelsFunction(torch.autograd.Function):
+    """K7's levels forward with its backward: the gradient of each map
+    only."""
+
+    @staticmethod
+    def forward(ctx, boxes, batch_idx, levels, scales, output_size, sampling_ratio, *maps):
+        ctx.save_for_backward(boxes, batch_idx, levels)
+        ctx.geometry = ([tuple(m.shape) for m in maps], scales, output_size, sampling_ratio)
+        return _roi_align_levels_cuda(maps, boxes, batch_idx, levels, scales, output_size,
+                                      sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        boxes, batch_idx, levels = ctx.saved_tensors
+        shapes, scales, output_size, sampling_ratio = ctx.geometry
+        dmaps = _roi_align_levels_backward_cuda(grad_out, boxes, batch_idx, levels, scales,
+                                                shapes, output_size, sampling_ratio)
+        return (None,) * 6 + tuple(dmaps)
+
+
+def roi_align_levels(maps, boxes: torch.Tensor, batch_idx: torch.Tensor, levels: torch.Tensor,
+                     scales, output_size: int = 7, sampling_ratio: int = 2) -> torch.Tensor:
+    """RoI r of (R, 4) ``boxes`` (image coordinates) pooled from image
+    ``batch_idx[r]`` of ``maps[levels[r]]`` (float32 (N, H_l, W_l, C)) at
+    the box times ``scales[l]`` -> (R, out, out, C): one K7 launch on a
+    CUDA tensor (with one backward launch when a map requires a gradient),
+    ``roi_align_levels_plain`` on a CPU tensor."""
+    scales = tuple(float(v) for v in scales)
+    batch_idx = batch_idx.to(torch.int32)
+    _check_levels(maps, boxes, batch_idx, levels, scales)
+    if boxes.device.type == "cuda":
+        maps = [m.contiguous() for m in maps]
+        if torch.is_grad_enabled() and any(m.requires_grad for m in maps):
+            return RoIAlignLevelsFunction.apply(boxes, batch_idx, levels, scales, output_size,
+                                                sampling_ratio, *maps)
+        return _roi_align_levels_cuda(maps, boxes, batch_idx, levels, scales, output_size,
+                                      sampling_ratio)
+    if boxes.device.type == "cpu":
+        return roi_align_levels_plain(maps, boxes, batch_idx, levels, scales, output_size,
+                                      sampling_ratio)
+    raise ValueError(f"roi_align_levels: no implementation for device {boxes.device}")

@@ -15,6 +15,12 @@ The spans, and what reads them (PERF.md, section 3):
   kernel makes no host sync);
 - ``tspn.backbone``, ``tspn.rpn``, ``tspn.roi_head``, ``tspn.postprocess``:
   the detector's stages (``detection/rcnn.py``);
+- ``tspn.fpn``, ``tspn.rpn.levels``, ``tspn.roi_levels``: the X101-FPN
+  detector's levels (``detection/fpn.py``): the neck (after
+  ``tspn.backbone``), the per-level top-k, decode, clip and level-offset
+  NMS (inside ``tspn.rpn``), and the level assignment with the
+  multi-level RoIAlign launch (inside ``tspn.roi_head``); the benchmark's
+  ``levels_idle_share`` reads their union;
 - ``tspn.h2d``, ``tspn.d2h``: the batch's copy to the card and the
   detections' readback;
 - ``tspn.backward``, ``tspn.optimizer``: a training step's backward pass

@@ -3,14 +3,16 @@
     python -m tspn_tpu_torch.tools.train_detector --data_dir data [--dataset vidvrd]
         [--split train] [--image_root image] [--max_iter 100000] [--ims_per_batch 4]
         [--base_lr 2.5e-4] [--input_policy letterbox|shortest_edge] [--image_size 640]
-        [--min_size 800] [--max_size 1333] [--depth 101] [--eval_split SPLIT]
-        [--eval_every 5000] [--eval_max_images 500] [--output PATH] [--bf16]
-        [--device cuda]
+        [--min_size 800] [--max_size 1333] [--arch r-c4|x-fpn] [--depth 101]
+        [--eval_split SPLIT] [--eval_every 5000] [--eval_max_images 500]
+        [--output PATH] [--bf16] [--device cuda]
 
 Registers the VidVRD / VidOR frames in COCO format and trains Faster R-CNN
-R101-C4 with the reference recipe (IMS_PER_BATCH 4, lr 2.5e-4, 100k
-iterations, ROI batch 128), optionally evaluating on a held-out split and
-keeping the best checkpoint. ``--bf16`` computes in bfloat16 over float32
+with the reference recipe (IMS_PER_BATCH 4, lr 2.5e-4, 100k iterations,
+ROI batch 128), optionally evaluating on a held-out split and keeping the
+best checkpoint. ``--arch`` picks the detector: ``r-c4`` (the default)
+is R101-C4, ``x-fpn`` ResNeXt-101 32x8d with an FPN (float32 only).
+``--bf16`` computes the R-C4 detector in bfloat16 over float32
 parameters. ``--output`` receives the port's training checkpoint
 (torch.save: parameters, SGD momentum, LR schedule, step), which
 ``runtime.checkpoint.load_detector_checkpoint`` reads.
@@ -33,6 +35,7 @@ from tspn_tpu_torch.detection.coco_format import (
     vidor_to_coco_format,
     vidvrd_to_coco_format,
 )
+from tspn_tpu_torch.detection.fpn import FPNConfig
 from tspn_tpu_torch.detection.inputs import DetectorTrainConfig
 from tspn_tpu_torch.detection.rcnn import DetectionConfig
 from tspn_tpu_torch.detection.train import launch, train_detector
@@ -46,7 +49,7 @@ def _load_records(args, split):
 
 
 def parse_args(argv=None):
-    parser = argparse.ArgumentParser(description="Train Faster R-CNN R101-C4")
+    parser = argparse.ArgumentParser(description="Train Faster R-CNN (R101-C4 or X101-FPN)")
     parser.add_argument("--data_dir", required=True)
     parser.add_argument("--dataset", choices=["vidvrd", "vidor"], default="vidvrd")
     parser.add_argument("--split", default="train")
@@ -60,6 +63,8 @@ def parse_args(argv=None):
                         help="square letterbox target (letterbox policy)")
     parser.add_argument("--min_size", type=int, default=800)
     parser.add_argument("--max_size", type=int, default=1333)
+    parser.add_argument("--arch", choices=["r-c4", "x-fpn"], default="r-c4",
+                        help="R101-C4, or ResNeXt-101 32x8d with an FPN")
     parser.add_argument("--depth", type=int, default=101)
     parser.add_argument("--eval_split", default=None,
                         help="held-out split for in-training evaluation")
@@ -75,6 +80,8 @@ def parse_args(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the plain RoIAlign)")
     args = parser.parse_args(argv)
+    if args.arch == "x-fpn" and args.bf16:
+        parser.error("--arch x-fpn computes in float32: drop --bf16")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         parser.error(f"--device {args.device}: no CUDA device is available "
                      "(pass --device cpu to run on the CPU)")
@@ -89,7 +96,8 @@ def main(argv=None):
     if args.eval_split:
         eval_records = _load_records(args, args.eval_split)[: args.eval_max_images]
 
-    det_cfg = DetectionConfig(num_classes=num_classes, depth=args.depth)
+    config = FPNConfig if args.arch == "x-fpn" else DetectionConfig
+    det_cfg = config(num_classes=num_classes, depth=args.depth)
     train_cfg = DetectorTrainConfig(
         ims_per_batch=args.ims_per_batch,
         base_lr=args.base_lr,
