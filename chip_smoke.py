@@ -216,7 +216,17 @@ Phases, in order; any failure raises and the exit code is nonzero:
     keeping some; then train_detector (shortest-edge inputs, 3 steps a
     run) with K7 and with the plain form, step-1 losses within rtol 1e-4:
     one levels forward a detect batch and a training step, one levels
-    backward a training step.
+    backward a training step, one grouped weight-gradient launch a grouped
+    conv (33) a training step;
+33. report the build of csrc/grouped_wgrad.cu and hold the grouped convs'
+    weight-gradient kernel against grouped_wgrad_plain (im2col and a
+    product a group) at ResNeXt-101 32x8d's grouped convs at the training
+    cell's geometry (4 images of 800 x 1344: res2-res5 and the strided
+    first convs of res3-res5): within 1e-5 * T + 1e-7 (T the plain
+    gradient of |x| and |dY|), a second run bit-equal, one launch a call;
+    time kernel, plain and cuDNN's grouped weight gradient
+    (torch.nn.grad.conv2d_weight, a yardstick the port never calls) beside
+    the bound (FFMA operations; bytes at res2 and res3's first conv).
 
 Convolutions and matrix products run in full f32 (TF32 off throughout).
 The kernel launches of the main path are counted from zero before each
@@ -323,6 +333,13 @@ K7_LEVELS_BACKWARD_CASES = (("train", 4, (800, 1344), 512, True),
                             ("ragged", 4, (800, 1344), 475, False))
 FPN_SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
 LEVELS_CHUNK = 512  # RoIs per plain call: its P2 gather is (R, 14, 336, 256)
+# the grouped convs' weight gradient (phase 33): ResNeXt-101 32x8d's grouped
+# 3x3 convs at the training cell's geometry, (name, images, C, Cg, input H,
+# W, stride)
+GROUPED_WGRAD_CASES = (("res2", 4, 256, 8, 200, 336, 1), ("res3_first", 4, 512, 16, 200, 336, 2),
+                       ("res3", 4, 512, 16, 100, 168, 1), ("res4_first", 4, 1024, 32, 100, 168, 2),
+                       ("res4", 4, 1024, 32, 50, 84, 1), ("res5_first", 4, 2048, 64, 50, 84, 2),
+                       ("res5", 4, 2048, 64, 25, 42, 1))
 FPN_FRAMES, FPN_FRAME_HW, FPN_TRAIN_STEPS = 16, (768, 1344), 3
 # K4, K5, K6 and probe checks: (name, objects C of the layout, rows); the
 # tool geometry is NUM_SEGMENTS x 992 pairs of tools/bench_pair_kernels.py
@@ -2176,11 +2193,71 @@ def phase_fpn(dev) -> dict:
     # runs; one forward and one backward a kernel training step. NMS: two
     # calls a detect batch (the RPN's over all levels, the class-aware) in
     # all three detect runs; one a training step in both training runs
+    # The grouped weight gradient: one a grouped conv in every step of both
+    # training runs, none in detection
+    from tspn_tpu_torch.detection.resnet import RESNET_DEPTHS
+
     batches = -(-FPN_FRAMES // DET_BATCH)
     result["want_launches"] = {"roi_align_levels": 2 * batches + FPN_TRAIN_STEPS,
                                "roi_align_levels_backward": FPN_TRAIN_STEPS,
-                               "nms": 3 * 2 * batches + 2 * FPN_TRAIN_STEPS}
+                               "nms": 3 * 2 * batches + 2 * FPN_TRAIN_STEPS,
+                               "grouped_wgrad": 2 * FPN_TRAIN_STEPS * sum(RESNET_DEPTHS[cfg.depth])}
     return result
+
+
+def phase_grouped_wgrad_check(dev) -> dict:
+    """csrc/grouped_wgrad.cu against grouped_wgrad_plain on the card at
+    GROUPED_WGRAD_CASES: within 1e-5 * T + 1e-7, a second run bit-equal,
+    one launch a call; kernel, plain and cuDNN's grouped weight gradient
+    timed with CUDA events beside the bound."""
+    from tspn_tpu_torch.ops import grouped_conv as gc
+
+    report = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, n, c, cg, h, w, s in GROUPED_WGRAD_CASES:
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+        x = torch.relu(torch.randn(n, c, h, w, device=dev, generator=g))
+        dy = torch.randn(n, c, ho, wo, device=dev, generator=g) * 1e-3
+        shape, groups = (c, cg, 3, 3), c // cg
+        before = gc.LAUNCHES["grouped_wgrad"]
+        out = gc.grouped_wgrad(x, dy, shape, s, 1, groups)
+        again = gc.grouped_wgrad(x, dy, shape, s, 1, groups)
+        torch.cuda.synchronize()
+        if gc.LAUNCHES["grouped_wgrad"] != before + 2:
+            raise AssertionError(f"grouped_wgrad {name}: {gc.LAUNCHES['grouped_wgrad'] - before}"
+                                 " launches for two calls")
+        if not torch.equal(out, again):
+            raise AssertionError(f"grouped_wgrad {name}: a second run differs")
+        ref = gc.grouped_wgrad_plain(x, dy, shape, s, 1, groups)
+        terms = gc.grouped_wgrad_plain(x.abs(), dy.abs(), shape, s, 1, groups)
+        err = (out.double() - ref.double()).abs()
+        ratio = float((err / (1e-5 * terms.double() + 1e-7)).max())
+        if ratio > 1.0:
+            raise AssertionError(f"grouped_wgrad {name}: worst err/bound {ratio:.3f}")
+        del ref, terms, again
+        ms = cuda_median_ms(lambda: gc.grouped_wgrad(x, dy, shape, s, 1, groups))
+        plain_ms = cuda_median_ms(lambda: gc.grouped_wgrad_plain(x, dy, shape, s, 1, groups),
+                                  warmup=1, iters=3, reps=3)
+        library_ms = cuda_median_ms(
+            lambda: torch.nn.grad.conv2d_weight(x, shape, dy, s, 1, 1, groups))
+        flops = 2 * n * ho * wo * c * cg * 9
+        b = bound((x, dy), out, flops, "f32")
+        plan = gc.grouped_wgrad_plan(n, c, h, w, cg, s, sms)
+        report[name] = {"images": n, "channels": c, "cg": cg, "in_hw": [h, w], "stride": s,
+                        "plan": plan._asdict(), "max_abs_err": float(err.max()),
+                        "worst_err_over_bound": ratio, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, **b,
+                        "roofline_pct": b["bound_ms"] / ms * 100.0,
+                        "tflops": flops / ms * 1e-9}
+        log(f"grouped_wgrad {name}: {n} x {c} x {h} x {w} / {s}, Cg {cg} (tw {plan.tw}, ksplit "
+            f"{plan.ksplit}, {plan.blocks} blocks): worst err/bound {ratio:.4f}, repeats bit for "
+            f"bit; kernel {ms:.4f} ms ({flops / ms * 1e-9:.2f} TFLOP/s, "
+            f"{report[name]['roofline_pct']:.1f}% of its {b['bound_by']} bound "
+            f"{b['bound_ms']:.4f} ms), plain {plain_ms:.3f} ms, cuDNN {library_ms:.4f} ms")
+        del x, dy, out, err
+        torch.cuda.empty_cache()
+    return report
 
 
 def nms_inputs(name: str, dev):
@@ -2230,7 +2307,7 @@ def phase_nms(dev) -> dict:
 
 
 def build_kernels() -> None:
-    """The eleven sources' nvcc builds (K1 and K6 share q8s_sm90.cu, K4 is
+    """The twelve sources' nvcc builds (K1 and K6 share q8s_sm90.cu, K4 is
     q8s.cu; Kr, Kn and Ks4 rel.cu; T-roi 1-3 roi_probes.cu), one per source,
     started together."""
     from tspn_tpu_torch.ops import _cuda
@@ -2239,7 +2316,7 @@ def build_kernels() -> None:
                  _cuda.fused_classify_library, _cuda.roi_align_library,
                  _cuda.q8_bf16_library, _cuda.rel_library,
                  _cuda.fused_classify_bf16_library, _cuda.roi_sep_fused_library,
-                 _cuda.pair_probe_library, _cuda.nms_library)
+                 _cuda.pair_probe_library, _cuda.nms_library, _cuda.grouped_wgrad_library)
     with ThreadPoolExecutor(len(libraries)) as pool:
         for f in [pool.submit(lib) for lib in libraries]:
             f.result()
@@ -2258,16 +2335,18 @@ def report_build(name: str) -> None:
 def main_path(name: str, fn):
     """Drive one group of main-path phases with every launch count set to
     0 just before and read just after -> (fn's result, counts)."""
+    from tspn_tpu_torch.ops import grouped_conv as gc
     from tspn_tpu_torch.ops import nms as tnms
     from tspn_tpu_torch.ops import pairwise as pw
     from tspn_tpu_torch.ops import rel
     from tspn_tpu_torch.ops import roi_align as ra
     from tspn_tpu_torch.ops import roi_probes as rp
 
-    for module in (pw, ra, rel, rp, tnms):
+    for module in (pw, ra, rel, rp, tnms, gc):
         module.reset_launches()
     result = fn()
-    counts = {**pw.LAUNCHES, **ra.LAUNCHES, **rel.LAUNCHES, **rp.LAUNCHES, **tnms.LAUNCHES}
+    counts = {**pw.LAUNCHES, **ra.LAUNCHES, **rel.LAUNCHES, **rp.LAUNCHES, **tnms.LAUNCHES,
+              **gc.LAUNCHES}
     log(f"main path {name}: launches {counts}")
     return result, counts
 
@@ -2280,8 +2359,9 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
     it accepts the shapes), K3 f32 ``torch.matmul`` of rows normalized
     beforehand (the product alone), K1 and K6 ``torch._int_mm`` of the same rows
     (their int32 product without the segment fold, the nearest single
-    call), and selector and constg (``torch.matmul`` with their G
-    materialized): PyTorch has no int4 product for Kn and Ks4, and no
+    call), selector and constg (``torch.matmul`` with their G
+    materialized), and the grouped weight gradient
+    (``torch.nn.grad.conv2d_weight``, cuDNN's): PyTorch has no int4 product for Kn and Ks4, and no
     single PyTorch call computes the other kernels' functions (they scale
     segments of an int32 or bf16 product by per-row scales; for RoIAlign,
     ``F.grid_sample``'s zero padding splits the weight at the border where
@@ -2502,6 +2582,8 @@ def main() -> int:
     if {k: v for k, v in counts_fpn.items() if v} != fpn["want_launches"]:
         raise AssertionError(f"X101-FPN detect + train launches {counts_fpn}, want "
                              f"{fpn['want_launches']}")
+    report_build("grouped_wgrad")
+    gw_checks = phase_grouped_wgrad_check(dev)
     all_counts = (counts_int8, counts_fused, counts_ppn, counts_det, counts_tool, counts_rel,
                   counts_bf16, counts_roi, counts_train, counts_fpn)
     launches = {k: sum(c[k] for c in all_counts) for k in counts_int8}
@@ -2524,6 +2606,7 @@ def main() -> int:
                     "detector_train": det_train, "detector_bf16": detect_bf16,
                     "nms_geometries": nms_checks,
                     "roi_align_levels_geometries": k7l_checks, "detector_fpn": fpn,
+                    "grouped_wgrad_geometries": gw_checks,
                     "main_path_launches": {"int8_serve": counts_int8,
                                            "fused": counts_fused, "ppn": counts_ppn,
                                            "detector": counts_det,
@@ -2570,6 +2653,11 @@ def main() -> int:
                      launches["roi_align_levels_backward"], k7l_checks["backward"], "train",
                      worst_err_over_bound=max(v["worst_err_over_bound"]
                                               for v in k7l_checks["backward"].values())),
+        kernel_entry("grouped_wgrad", "tspn_tpu_torch/csrc/grouped_wgrad.cu",
+                     "none (the JAX package leaves convolutions to XLA)",
+                     launches["grouped_wgrad"], gw_checks, "res4",
+                     worst_err_over_bound=max(v["worst_err_over_bound"]
+                                              for v in gw_checks.values())),
         kernel_entry("q8i8", "tspn_tpu_torch/csrc/q8s.cu",
                      "tspn_tpu/ops/pairwise.py:571", launches["q8i8"],
                      variant_checks["q8i8"], "tool", check_launches=checked["q8i8"]),

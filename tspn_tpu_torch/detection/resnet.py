@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tspn_tpu_torch.ops.grouped_conv import grouped_conv2d
+
 # stage depths (26 = one bottleneck per stage, for tests/smoke)
 RESNET_DEPTHS = {
     26: (1, 1, 1, 1),
@@ -51,10 +53,12 @@ class FrozenAffine(nn.Module):
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d computing in ``dtype`` (flax ``nn.Conv(dtype=...)``). A
-    grouped conv runs in NCHW and gives its output back channels-last:
-    cuDNN's channels-last grouped kernels in f32 are several times slower
-    (on an H100 its grouped weight gradient at res2's shape took 7x the
-    NCHW one's time, and ResNeXt-101 FPN's training step 2.5x)."""
+    grouped conv is ``ops/grouped_conv.py::grouped_conv2d``: it runs in NCHW
+    and gives its output back channels-last (cuDNN's channels-last grouped
+    kernels in f32 are several times slower: on an H100 its grouped weight
+    gradient at res2's shape took 7x the NCHW one's time, and ResNeXt-101
+    FPN's training step 2.5x), and its weight gradient is a kernel of the
+    port's own."""
 
     def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
@@ -65,9 +69,8 @@ class Conv2d(nn.Conv2d):
         if self.groups == 1:
             y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
         else:
-            y = F.conv2d(x.to(dt).contiguous(), self.weight.to(dt).contiguous(), None,
-                         self.stride, self.padding, 1, self.groups
-                         ).contiguous(memory_format=torch.channels_last)
+            y = grouped_conv2d(x.to(dt).contiguous(), self.weight.to(dt).contiguous(),
+                               self.stride, self.padding, self.groups)
         return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
 
 

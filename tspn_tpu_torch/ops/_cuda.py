@@ -150,6 +150,10 @@ def nms_library() -> ctypes.CDLL:
     return _bound("nms", "tspn_nms_launch", 7, 3, n_floats=1)
 
 
+def grouped_wgrad_library() -> ctypes.CDLL:
+    return _bound("grouped_wgrad", "tspn_grouped_wgrad_launch", 4, 8)
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a C entry point."""
     if err != 0:

@@ -25,6 +25,11 @@ The spans, and what reads them (PERF.md, section 3):
   detections' readback;
 - ``tspn.backward``, ``tspn.optimizer``: a training step's backward pass
   and its SGD and schedule step;
+- ``tspn.conv2d.grouped_wgrad``: the launch of a grouped conv's
+  weight-gradient kernel (``ops/grouped_conv.py``), on the autograd
+  engine's thread; the trace ties the kernel to it, so the benchmark's
+  ``conv_roofline`` counts its time (the name holds ``conv2d``) and
+  ``grouped_wgrad_roofline`` reads it alone;
 - ``tspn.input_wait``: ``train_detector``'s wait for the next batch.
 """
 
